@@ -1,0 +1,2 @@
+"""Hand-written Hopper kernels (``csrc/``), their wrappers and plain
+PyTorch versions."""

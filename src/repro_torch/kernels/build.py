@@ -1,0 +1,105 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface (a few seconds each; a source that
+included PyTorch's headers would take minutes).  Libraries land in
+``kernels/build/`` under a name that carries a digest of the sources and
+flags, so an edited source is rebuilt and a stale library is never loaded.
+``build()`` starts one ``nvcc`` per source, all at once.
+
+Nothing here runs at import time: the CPU tests import every module of the
+port on machines without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills, kept in the log
+]
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> list[str]:
+    """Names of the kernel sources (``csrc/<name>.cu``)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found: the port's CUDA kernels are compiled at first use "
+        "and need the CUDA toolkit (nvcc on PATH or under /usr/local/cuda)"
+    )
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256()
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: list[str] | None = None) -> dict[str, float]:
+    """Compile the named sources (default: all) that have no library yet,
+    one ``nvcc`` process per source, started together.  Returns the
+    seconds each build took (0.0 for a library already built).  Raises
+    ``RuntimeError`` with the compiler's output if any build fails."""
+    names = sources() if names is None else names
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    seconds = {name: 0.0 for name in names}
+    running = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        running.append((name, proc, tmp, out, time.perf_counter()))
+    failed = []
+    for name, proc, tmp, out, t0 in running:
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return seconds
+
+
+def build_log(name: str) -> str:
+    """The compiler's output for ``name`` (ptxas register/smem report)."""
+    return library_path(name).with_suffix(".log").read_text()
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    if name not in _loaded:
+        build([name])
+        _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return _loaded[name]
