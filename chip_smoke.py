@@ -8,10 +8,13 @@ nvcc, then runs the paper's SIFT1M deployment, ``ivfflat_sift1m(1.0)``
 (1M x 128 vectors, 4000 lists, T_m = 1024, nprobe 32, k 10, K' 128),
 through ``IVFIndex``: train, offline add in batches of 65,536, online
 insert batches, and ``union_fused`` search batches of 64 queries with
-``rerank`` off and on, for float32 and bfloat16 payloads.  Then it holds
-every kernel against its plain PyTorch version on the card at the main
-path's shapes, and the kernel path against the plain path on the same
-index.
+``rerank`` off and on, for float32, bfloat16 and int8 payloads.  Then it
+holds every kernel against its plain PyTorch version on the card at the
+main path's shapes, and the kernel path against the plain path on the same
+index.  The churn phase then drives the mutation lane on the float32 and
+int8 indexes at full width: it deletes the oldest 35% of the ids, updates
+16,384 surviving ids, checks search against deleted and stale rows,
+compacts (Alg. 3) until quiescent, and checks the invariants and recall.
 
 Phases print one line each.  The second-to-last line is the per-kernel
 JSON record (launches on the main path, error against the plain version,
@@ -33,15 +36,19 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM: HBM rate and float32 rate outside the tensor cores (NVIDIA's
-# data sheet; the kernels here do float32 arithmetic on the CUDA cores)
+# H100 SXM: HBM rate, float32 rate outside the tensor cores and int8 rate
+# of the tensor cores (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+INT8_OP_PER_S = 1979e12
 
 N_BASE = 1_000_000  # the deployment's corpus
 ONLINE_BATCHES, ONLINE_BATCH = 4, 4096  # online inserts after the build
 N_QUERY_BATCHES, QUERY_BATCH = 8, 64  # served search batches per setting
 TIMING_REPS = 20
+N_DELETED = 350_000  # churn: the oldest 35% of the corpus's ids
+UPDATE_BATCHES, UPDATE_BATCH = 4, 4096
+MUTATION_BATCH = 4096
 
 
 def log(phase: str, **fields) -> None:
@@ -72,8 +79,9 @@ def cuda_ms(fn, reps: int = TIMING_REPS) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def bound_ms(nbytes: float, flops: float, rate: float = F32_FLOP_PER_S
+             ) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     if t_bytes >= t_ops:
         return t_bytes * 1e3, "bytes"
     return t_ops * 1e3, "operations"
@@ -152,7 +160,7 @@ def phase_main_path(base_cfg, corpus, online, queries, truth, device):
     import torch
 
     indexes = {}
-    for dtype in ("float32", "bfloat16"):
+    for dtype in ("float32", "bfloat16", "int8"):
         cfg = dataclasses.replace(base_cfg, dtype=dtype)
         torch.cuda.reset_peak_memory_stats()
         index, t_train, t_add, insert_ms = build_index(cfg, corpus, online, device)
@@ -160,11 +168,14 @@ def phase_main_path(base_cfg, corpus, online, queries, truth, device):
         check(stats["num_dropped"] == 0, f"{dtype}: {stats['num_dropped']} inserts dropped")
         check(index.ntotal == len(corpus) + sum(len(b) for b in online),
               f"{dtype}: ntotal {index.ntotal}")
+        state = index.state
+        payload_gb = (state.pool_payload.numel() * state.pool_payload.element_size()
+                      + state.pool_scales.numel() * 4) / 1e9
         log("slice", dtype=dtype, train_s=round(t_train, 2),
             add_s=round(t_add, 2), n_add_batches=-(-len(corpus) // 65536),
             online_insert_ms=[round(x, 2) for x in insert_ms],
             blocks_in_use=stats["blocks_in_use"], num_dropped=stats["num_dropped"],
-            ntotal=index.ntotal)
+            ntotal=index.ntotal, payload_gb=round(payload_gb, 3))
         for rerank in (False, True):
             ids, ms = serve(index, queries, rerank)
             check(ids.shape == truth.shape and (ids >= 0).all(),
@@ -186,7 +197,11 @@ def phase_main_path(base_cfg, corpus, online, queries, truth, device):
 
 def kernel_records(indexes, queries, vmax, counts):
     """Every kernel against its plain version at the main path's shapes, on
-    the candidate list of the real index; returns the JSON records."""
+    the candidate list of the real index; returns the JSON records of the
+    kernels the main path launches.  ``rerank_topk[int8]`` is held to its
+    plain version too, but no path launches it (int8 search re-ranks
+    reconstructed float32 rows, as the reference does), so its record is
+    logged and left out of the JSON line."""
     import torch
     from repro_torch.core import search as S
     from repro_torch.kernels import ivf_scan, ref
@@ -200,15 +215,18 @@ def kernel_records(indexes, queries, vmax, counts):
     rtol = 1e-5
     records = []
 
-    def record(name, source, replaces, kern, plain, nbytes, flops):
+    def record(name, source, replaces, kern, plain, nbytes, flops,
+               rate=F32_FLOP_PER_S):
         (kd, ki), (pd, pi) = kern(), plain()
         torch.cuda.synchronize()
         faults = ref.topk_mismatches(kd.cpu(), ki.cpu(), pd.cpu(), pi.cpu(),
                                      rtol=rtol, atol=atol)
         check(not faults, f"{name} disagrees with its plain version: {faults[:3]}")
+        log("agree", name=name, ids_equal=bool(torch.equal(ki, pi)),
+            bit_equal=bool(torch.equal(ki, pi) and torch.equal(kd, pd)))
         fin = torch.isfinite(kd) & torch.isfinite(pd)
         err = float((kd[fin] - pd[fin]).abs().max()) if fin.any() else 0.0
-        b_ms, b_by = bound_ms(nbytes, flops)
+        b_ms, b_by = bound_ms(nbytes, flops, rate)
         rec = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts.get(name, 0),
@@ -217,21 +235,21 @@ def kernel_records(indexes, queries, vmax, counts):
             "bound_by": b_by, "library_ms": None,
         }
         log("kernel", **{k: v for k, v in rec.items() if k not in ("source", "replaces")})
-        records.append(rec)
+        return rec
 
     idx = indexes["float32"]
     cents = idx.state.centroids
     n, d = cents.shape
     nprobe, k = idx.cfg.nprobe, idx.cfg.k
     kp = S.default_kprime(k)
-    record(  # the coarse wrappers return (ids, dists): flip to (dists, ids)
+    records.append(record(  # the coarse wrappers return (ids, dists): flip
         "coarse_topk", "src/repro_torch/kernels/csrc/coarse_topk.cu",
         "src/repro/kernels/ivf_scan.py:153",
         lambda: ivf_scan.coarse_topk(q, cents, nprobe=nprobe)[::-1],
         lambda: ref.coarse_topk_ref(q, cents, nprobe=nprobe)[::-1],
         4 * (q.numel() + cents.numel()) + 8 * q.shape[0] * nprobe,
         2 * q.shape[0] * n * d + 2 * n * d,
-    )
+    ))
     for dtype, index in indexes.items():
         state = index.state
         uc = S._union_candidates(index.pool_cfg, state, q, nprobe,
@@ -241,58 +259,206 @@ def kernel_records(indexes, queries, vmax, counts):
         esize = state.pool_payload.element_size()
         member_pairs = int((uc.probe_idx.long()[:, :, None]
                             == uc.owners.long()[None, None, :]).any(1).sum())
-        args = (q, state.pool_payload, uc.flat_blocks, uc.owners,
-                state.pool_ids, state.pool_live, uc.probe_idx)
         log("candidates", dtype=dtype, C=c, member_pairs=member_pairs,
             queries=q.shape[0], nprobe=nprobe, T=t, kprime=kp)
-        record(
-            f"ivf_block_topk[{dtype}]", "src/repro_torch/kernels/csrc/ivf_block_topk.cu",
-            "src/repro/kernels/ivf_scan.py:313",
-            lambda: ivf_scan.ivf_block_topk(*args, kprime=kp),
-            lambda: ref.ivf_block_topk_ref(*args, kprime=kp),
-            c * t * (d * esize + 5) + 8 * c + 4 * q.numel()
-            + 4 * uc.probe_idx.numel() + 8 * q.shape[0] * kp,
-            2 * member_pairs * t * d + 2 * c * t * d,
-        )
-        _, loc = ivf_scan.ivf_block_topk(*args, kprime=kp)
+        if dtype == "int8":
+            qres = q[:, None, :] - state.centroids[uc.probe_idx.long()]
+            q_codes, q_meta = ivf_scan.quantize_queries(qres)
+            args = (q_codes, q_meta, state.pool_payload, state.pool_scales,
+                    uc.flat_blocks, uc.owners, state.pool_ids, state.pool_live,
+                    uc.probe_idx)
+            records.append(record(
+                "ivf_block_topk_int8",
+                "src/repro_torch/kernels/csrc/ivf_block_topk_int8.cu",
+                "src/repro/kernels/ivf_scan.py:577",
+                lambda: ivf_scan.ivf_block_topk_int8(*args, kprime=kp),
+                lambda: ref.ivf_block_topk_int8_ref(*args, kprime=kp),
+                # codes, scales, ids and live bits of every candidate block,
+                # the candidate list, query codes + meta, probes, the output
+                c * t * (d + 4 + 4 + 1) + 8 * c + q_codes.numel()
+                + 4 * q_meta.numel() + 4 * uc.probe_idx.numel()
+                + 8 * q.shape[0] * kp,
+                2 * member_pairs * t * d + 2 * c * t * d,
+                rate=INT8_OP_PER_S,
+            ))
+            _, loc = ivf_scan.ivf_block_topk_int8(*args, kprime=kp)
+        else:
+            args = (q, state.pool_payload, uc.flat_blocks, uc.owners,
+                    state.pool_ids, state.pool_live, uc.probe_idx)
+            records.append(record(
+                f"ivf_block_topk[{dtype}]",
+                "src/repro_torch/kernels/csrc/ivf_block_topk.cu",
+                "src/repro/kernels/ivf_scan.py:313",
+                lambda: ivf_scan.ivf_block_topk(*args, kprime=kp),
+                lambda: ref.ivf_block_topk_ref(*args, kprime=kp),
+                c * t * (d * esize + 5) + 8 * c + 4 * q.numel()
+                + 4 * uc.probe_idx.numel() + 8 * q.shape[0] * kp,
+                2 * member_pairs * t * d + 2 * c * t * d,
+            ))
+            _, loc = ivf_scan.ivf_block_topk(*args, kprime=kp)
         loc = S._live_locs(state, loc).to(torch.int32).contiguous()
-        rows = state.pool_payload.reshape(p * t, -1)[loc.clamp(min=0).long()]
-        scales = torch.ones(loc.shape, device=dev)
-        record(
+        safe = loc.clamp(min=0).long()
+        rows = state.pool_payload.reshape(p * t, -1)[safe]
+        if dtype == "int8":  # the i8 rows variant, on gathered codes + scales
+            scales = state.pool_scales.reshape(-1)[safe].contiguous()
+        else:
+            scales = torch.ones(loc.shape, device=dev)
+        rec = record(
             f"rerank_topk[{dtype}]", "src/repro_torch/kernels/csrc/rerank_topk.cu",
             "src/repro/kernels/ivf_scan.py:815",
             lambda: ivf_scan.rerank_topk(q, rows, scales, loc),
             lambda: ref.rerank_topk_ref(q, rows, scales, loc),
-            rows.numel() * esize + 8 * loc.numel() + 4 * q.numel()
-            + 8 * loc.numel(),
+            rows.numel() * esize + 4 * scales.numel() + 4 * loc.numel()
+            + 4 * q.numel() + 8 * loc.numel(),
             4 * rows.numel(),
         )
+        if dtype != "int8":
+            records.append(rec)
     return records
 
 
-def phase_paths_agree(indexes, queries, vmax) -> None:
+def paths_agree(index, q, vmax, **tags) -> dict:
     """The kernel path (union_fused) and the plain path (union_fused_scan)
-    give matching ids on the same index, under the tie rule."""
+    give matching ids on the same index, under the tie rule, rerank off
+    and on; returns the kernel path's ids by rerank setting."""
     import torch
     from repro_torch.core.search import make_search_fn
     from repro_torch.kernels import ref
 
+    q = torch.as_tensor(q, device=index.device)
+    atol = (1e-6 * ((q * q).sum(1) + vmax)).cpu()
+    ids = {}
+    for rerank in (False, True):
+        out = {}
+        for path in ("union_fused", "union_fused_scan"):
+            fn = make_search_fn(index.pool_cfg, nprobe=index.cfg.nprobe,
+                                k=index.cfg.k, path=path,
+                                chain_budget=index._chain_budget(), rerank=rerank)
+            out[path] = [x.cpu() for x in fn(index.state, q)]
+        (kd, ki), (pd, pi) = out["union_fused"], out["union_fused_scan"]
+        faults = ref.topk_mismatches(kd, ki, pd, pi, rtol=1e-5, atol=atol)
+        check(not faults, f"{tags} rerank={rerank}: paths disagree {faults[:3]}")
+        log("paths", **tags, rerank=rerank, queries=q.shape[0],
+            ids_equal=bool(torch.equal(ki, pi)), agree=True)
+        ids[rerank] = ki.numpy()
+    return ids
+
+
+def phase_paths_agree(indexes, queries, vmax) -> None:
     for dtype, index in indexes.items():
-        q = torch.as_tensor(queries[:QUERY_BATCH], device=index.device)
-        atol = (1e-6 * ((q * q).sum(1) + vmax)).cpu()
+        paths_agree(index, queries[:QUERY_BATCH], vmax, dtype=dtype)
+
+
+def phase_churn(index, dtype, indexed, queries, vmax, upd_ids, upd_vecs) -> None:
+    """The mutation lane at full width: the traffic of a feed or ad index
+    whose oldest content expires while live items are refreshed.  Deletes
+    ids [0, N_DELETED) and updates ``upd_ids`` in batches, checks search
+    against deleted and stale rows, compacts until quiescent, then checks
+    the invariants and recall@10 over the live vectors."""
+    import numpy as np
+    import torch
+    from repro_torch.core.block_pool import check_invariants
+    from repro_torch.core.search import exact_search
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    del_ms = []
+    for off in range(0, N_DELETED, MUTATION_BATCH):
+        ids = np.arange(off, min(off + MUTATION_BATCH, N_DELETED), dtype=np.int32)
+        n, ms = timed(lambda: index.delete(ids))
+        check(n == len(ids), f"{dtype}: delete found {n} of {len(ids)} ids")
+        del_ms.append(ms)
+    upd_ms = []
+    for off in range(0, len(upd_ids), UPDATE_BATCH):
+        sl = slice(off, off + UPDATE_BATCH)
+        upd_ms.append(timed(lambda: index.update(upd_vecs[sl], upd_ids[sl]))[1])
+    stats = index.stats()
+    n_live = len(indexed) - N_DELETED
+    check(stats["num_dropped"] == 0, f"{dtype}: {stats['num_dropped']} dropped")
+    check(stats["live_vectors"] == n_live and stats["num_missed"] == 0,
+          f"{dtype}: churn stats {stats}")
+    log("churn", dtype=dtype, deletes=N_DELETED, delete_batches=len(del_ms),
+        delete_first_ms=round(del_ms[0], 3),
+        delete_median_ms=round(statistics.median(del_ms[1:]), 3),
+        delete_max_ms=round(max(del_ms[1:]), 3), updates=len(upd_ids),
+        update_ms=[round(x, 3) for x in upd_ms], live_vectors=n_live,
+        dead_fraction=round(stats["dead_fraction"], 4))
+
+    # every updated id is found for its own new vector
+    rank1 = dtype == "float32"
+    index.cfg.rerank = not rank1
+    found = np.concatenate([index.search(upd_vecs[o : o + 512])[1]
+                            for o in range(0, len(upd_vecs), 512)])
+    ok = found[:, 0] == upd_ids if rank1 else (found == upd_ids[:, None]).any(1)
+    check(ok.all(), f"{dtype}: {int((~ok).sum())} updated ids not found "
+          f"{'at rank 1' if rank1 else 'in the top 10'} for their new vectors")
+
+    def no_dead_rows(tag):
+        """Served ids: none deleted, every one live (mapped to a live slot)."""
+        id_map = index.state.id_map.cpu().numpy()
+        live = index.state.pool_live.reshape(-1).cpu().numpy()
         for rerank in (False, True):
-            out = {}
-            for path in ("union_fused", "union_fused_scan"):
-                fn = make_search_fn(index.pool_cfg, nprobe=index.cfg.nprobe,
-                                    k=index.cfg.k, path=path,
-                                    chain_budget=index._chain_budget(),
-                                    rerank=rerank)
-                out[path] = [x.cpu() for x in fn(index.state, q)]
-            (kd, ki), (pd, pi) = out["union_fused"], out["union_fused_scan"]
-            faults = ref.topk_mismatches(kd, ki, pd, pi, rtol=1e-5, atol=atol)
-            check(not faults, f"{dtype} rerank={rerank}: paths disagree {faults[:3]}")
-            log("paths", dtype=dtype, rerank=rerank, queries=q.shape[0],
-                ids_equal=bool(torch.equal(ki, pi)), agree=True)
+            index.cfg.rerank = rerank
+            got = np.concatenate([index.search(queries[o : o + QUERY_BATCH])[1]
+                                  for o in range(0, len(queries), QUERY_BATCH)])
+            got = got[got >= 0]
+            check(not (got < N_DELETED).any(), f"{dtype} {tag}: a deleted id was served")
+            loc = id_map[got]
+            check((loc >= 0).all() and (live[np.maximum(loc, 0)] == 1).all(),
+                  f"{dtype} {tag}: a served id is not live")
+
+    batch = np.concatenate([queries[:QUERY_BATCH], upd_vecs[:QUERY_BATCH]])
+    paths_agree(index, batch, vmax, dtype=dtype, stage="churned")
+    no_dead_rows("churned")
+
+    # Alg. 3 until quiescent
+    before, cur_p0 = stats, int(index.state.cur_p)
+    passes, ms, max_passes = 0, 0.0, 512
+    while True:
+        n, t = timed(lambda: index.maybe_rearrange(max_passes=max_passes))
+        passes, ms = passes + n, ms + t
+        if n < max_passes:
+            break
+    after = index.stats()
+    cur_p, free_top = int(index.state.cur_p), int(index.state.free_top)
+    log("compact", dtype=dtype, passes=passes,
+        ms_per_pass=round(ms / max(passes, 1), 4), total_s=round(ms / 1e3, 2),
+        dead_fraction_before=round(before["dead_fraction"], 4),
+        dead_fraction_after=round(after["dead_fraction"], 4),
+        bump_blocks=cur_p - cur_p0, cur_p=cur_p, free_top=free_top,
+        blocks_in_use=after["blocks_in_use"])
+    check(passes > 0 and after["dead_fraction"] < before["dead_fraction"],
+          f"{dtype}: compaction reclaimed nothing")
+    # runs come off the free stack once cur_p + the chain's length passes
+    # the pool end
+    pool = index.pool_cfg
+    check(cur_p + pool.max_chain > pool.n_blocks,
+          f"{dtype}: compaction never exhausted the bump region")
+    t0 = time.perf_counter()
+    check_invariants(index.state, index.pool_cfg)
+    log("invariants", dtype=dtype, ok=True, seconds=round(time.perf_counter() - t0, 2))
+    paths_agree(index, batch, vmax, dtype=dtype, stage="compacted")
+    no_dead_rows("compacted")
+
+    # recall@10 against exact search over the live vectors
+    live_ids = np.arange(N_DELETED, len(indexed), dtype=np.int64)
+    live_vecs = indexed[N_DELETED:].copy()
+    live_vecs[upd_ids - N_DELETED] = upd_vecs
+    _, pos = exact_search(torch.as_tensor(live_vecs, device=index.device),
+                          torch.as_tensor(queries, device=index.device), 10)
+    truth = live_ids[pos.cpu().numpy()]
+    for rerank in (False, True):
+        ids, _ = serve(index, queries, rerank)
+        rec = recall_at_10(ids, truth)
+        log("search", dtype=dtype, stage="compacted", rerank=rerank,
+            recall_at_10=round(rec, 4))
+        check(rec > 0.2, f"{dtype} compacted rerank={rerank}: recall@10 {rec}")
+    check(index.stats()["num_dropped"] == 0, f"{dtype}: inserts dropped")
+    index.cfg.rerank = False
 
 
 def phase_profile(indexes, queries) -> None:
@@ -386,15 +552,31 @@ def main() -> int:
     ops.reset_launch_counts()
     indexes = phase_main_path(cfg, corpus, online, queries, truth, "cuda")
     counts = ops.launch_counts()
-    log("kernels", **counts)
+    log("kernels", path="search", **counts)
     for name in ("coarse_topk", "ivf_block_topk[float32]",
-                 "ivf_block_topk[bfloat16]", "rerank_topk[float32]",
-                 "rerank_topk[bfloat16]"):
+                 "ivf_block_topk[bfloat16]", "ivf_block_topk_int8",
+                 "rerank_topk[float32]", "rerank_topk[bfloat16]"):
         check(counts[name] > 0, f"kernel {name} never launched on the main path")
 
     records = kernel_records(indexes, queries, vmax, counts)
     phase_paths_agree(indexes, queries, vmax)
     phase_profile(indexes, queries)
+
+    # the mutation lane, on the float32 and int8 indexes
+    del indexes["bfloat16"]
+    indexed = data[: N_BASE + n_online]
+    rng = np.random.default_rng(1)
+    upd_ids = rng.choice(np.arange(N_DELETED, len(indexed)),
+                         UPDATE_BATCHES * UPDATE_BATCH, replace=False).astype(np.int32)
+    upd_vecs = sift_like(len(upd_ids), cfg.dim, seed=1)
+    ops.reset_launch_counts()
+    for dtype, index in indexes.items():
+        phase_churn(index, dtype, indexed, queries, vmax, upd_ids, upd_vecs)
+    churn_counts = ops.launch_counts()
+    log("kernels", path="churn", **churn_counts)
+    for name in ("coarse_topk", "ivf_block_topk[float32]", "ivf_block_topk_int8",
+                 "rerank_topk[float32]"):
+        check(churn_counts[name] > 0, f"kernel {name} never launched on the churn path")
     log("done", seconds=round(time.perf_counter() - t_start, 1),
         peak_allocated_gb=round(torch.cuda.max_memory_allocated() / 2**30, 3))
     print(json.dumps({"kernels": records}), flush=True)

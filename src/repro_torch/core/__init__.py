@@ -17,6 +17,19 @@ from repro_torch.core.insert import (  # noqa: F401
 )
 from repro_torch.core.ivf import IVFIndex, IVFIndexConfig, build_ivf  # noqa: F401
 from repro_torch.core.kmeans import kmeans  # noqa: F401
+from repro_torch.core.mutate import (  # noqa: F401
+    REPLAY_KINDS,
+    apply_delete,
+    last_occurrence_mask,
+    make_delete_fn,
+    make_replay_fns,
+    make_update_fn,
+)
+from repro_torch.core.rearrange import (  # noqa: F401
+    exceed,
+    make_rearrange_fn,
+    rearrange_cluster,
+)
 from repro_torch.core.search import (  # noqa: F401
     exact_search,
     make_search_fn,

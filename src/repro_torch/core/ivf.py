@@ -7,9 +7,9 @@ no separate bulk loader.
 
 The index runs on ``cuda`` unless the caller passes ``device="cpu"``; on a
 machine without a GPU, ``IVFIndex(cfg)`` raises rather than quietly running
-on the CPU.  Deletes, updates and compaction arrive with the mutations
-slice (ROADMAP queue 1, item 4) and PQ payloads with item 5; until then
-they raise ``NotImplementedError``.
+on the CPU.  Deletes, updates and compaction (Alg. 3) run through the same
+state; PQ payloads arrive with ROADMAP queue 1, item 5 and raise
+``NotImplementedError`` until then.
 """
 
 from __future__ import annotations
@@ -24,6 +24,8 @@ import torch
 from repro_torch.core.block_pool import IVFState, PoolConfig, init_state, pool_stats
 from repro_torch.core.insert import make_insert_fn
 from repro_torch.core.kmeans import kmeans
+from repro_torch.core.mutate import make_delete_fn, make_update_fn
+from repro_torch.core.rearrange import make_rearrange_fn
 from repro_torch.core.search import make_search_fn
 
 #: Version stamp of the (field set, field semantics) of ``IVFState`` as
@@ -31,7 +33,6 @@ from repro_torch.core.search import make_search_fn
 #: written by either package loads in the other.
 STATE_SCHEMA_VERSION = 1
 
-_LATER_MUTATIONS = "ROADMAP queue 1, item 4 (mutations and compaction)"
 _LATER_PQ = "ROADMAP queue 1, item 5 (PQ)"
 
 
@@ -179,6 +180,7 @@ class IVFIndex:
         self.state: Optional[IVFState] = None
         self._insert_fn = None
         self._search_fns: dict = {}
+        self._rearrange_fn = None
         self._next_id = 0
 
     # ---------------------------------------------------------- build ----
@@ -189,7 +191,19 @@ class IVFIndex:
             seed=self.cfg.seed, device=self.device,
         )
         self.state = init_state(self.pool_cfg, torch.from_numpy(cents), self.device)
+        self._build_fns()
+
+    def _build_fns(self) -> None:
+        """The mutation and maintenance steps for ``pool_cfg``; apart from
+        ``train`` so that a restored state can be adopted without k-means
+        (the durability slice's ``install_state``)."""
         self._insert_fn = make_insert_fn(self.pool_cfg)
+        self._delete_fn = make_delete_fn(self.pool_cfg)
+        self._update_fn = make_update_fn(self.pool_cfg)
+        self._rearrange_fn = make_rearrange_fn(
+            self.pool_cfg, self.cfg.rearrange_threshold,
+            dead_frac=self.cfg.dead_frac_threshold,
+        )
 
     def add(self, x, ids=None) -> np.ndarray:
         """Insert a batch (offline load and online insertion share this).
@@ -207,13 +221,42 @@ class IVFIndex:
 
     # ------------------------------------------------------- mutations ----
     def delete(self, ids) -> int:
-        raise NotImplementedError(f"delete: {_LATER_MUTATIONS}")
+        """Tombstone a batch of ids; returns how many were found (misses,
+        i.e. unknown, already deleted or unmappable ids, accrue in
+        ``state.num_missed``).  The next compaction reclaims the space."""
+        if self.state is None:
+            raise RuntimeError("train() first")
+        before = int(self.state.num_deleted)
+        ids = torch.from_numpy(np.asarray(ids, np.int32))
+        self.state = self._delete_fn(self.state, ids)
+        return int(self.state.num_deleted) - before
 
     def update(self, x, ids) -> np.ndarray:
-        raise NotImplementedError(f"update: {_LATER_MUTATIONS}")
+        """Replace the vectors behind ``ids`` in one step (tombstone +
+        re-insert under the same id, no copy of any resident row).  Ids not
+        resident become plain inserts (upsert) and count in
+        ``num_missed``."""
+        if self.state is None:
+            raise RuntimeError("train() first")
+        x = torch.as_tensor(x, dtype=torch.float32).to(self.device)
+        ids = np.asarray(ids, np.int32)
+        if len(ids) != x.shape[0]:
+            raise ValueError(f"{len(ids)} ids for {x.shape[0]} vectors")
+        self.state = self._update_fn(self.state, x, torch.from_numpy(ids))
+        return ids
 
     def maybe_rearrange(self, max_passes: int = 4) -> int:
-        raise NotImplementedError(f"compaction: {_LATER_MUTATIONS}")
+        """Compact offender chains until quiescent or ``max_passes`` ran;
+        returns the number of passes run."""
+        if self.state is None:
+            raise RuntimeError("train() first")
+        n = 0
+        for _ in range(max_passes):
+            self.state, triggered = self._rearrange_fn(self.state)
+            if not triggered:
+                break
+            n += 1
+        return n
 
     def stats(self) -> dict:
         """Live-occupancy / reclamation gauges (see block_pool.pool_stats)."""

@@ -7,12 +7,15 @@ The search runs in five steps:
 2. the deduplicated candidate-block list, ``_union_candidates``: the union
    of the probed chains over the batch, so a block is a candidate once per
    batch, and the owner of every candidate;
-3. the fused scan with a streaming top-K' over float32/bfloat16 blocks,
-   ``ivf_block_topk``, which derives each query's membership from the
-   candidate owners and its probe list, masks empty slots and tombstones,
-   and returns packed pool locations ``block*T + offset``;
+3. the fused scan with a streaming top-K', which derives each query's
+   membership from the candidate owners and its probe list, masks empty
+   slots and tombstones, and returns packed pool locations
+   ``block*T + offset``: ``ivf_block_topk`` over float32/bfloat16 blocks,
+   ``ivf_block_topk_int8`` over int8 residual codes (the per-probe query
+   residuals are quantized once per batch);
 4. with ``rerank=True``, the exact re-rank epilogue ``rerank_topk`` over
-   the gathered K' survivor rows;
+   the gathered K' survivor rows (int8 rows are reconstructed in float32,
+   centroid included, first);
 5. the final k-selection (the first k of the sorted K') and the resolution
    of locations to global ids.
 
@@ -20,9 +23,9 @@ Steps 1, 3 and 4 are kernels: on a CUDA tensor the hand-written Hopper
 kernel, on a CPU tensor its plain PyTorch version (``kernels/ops.py``).
 Path ``union_fused_scan`` runs the plain versions on any device; it is the
 comparison the kernels are held to.  The reference's other paths
-(``block_table``, ``chain_walk``, ``union``, ``union_pallas``) and the
-int8 and PQ payloads are not ported yet and raise ``NotImplementedError``
-naming their ROADMAP item.
+(``block_table``, ``chain_walk``, ``union``, ``union_pallas``) and the PQ
+payload are not ported yet and raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -33,12 +36,11 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.core.block_pool import NULL, IVFState, PoolConfig
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ivf_scan, ops, ref
 
 INF = float("inf")
 
 _LATER_PATHS = "ROADMAP queue 1, item 2 (the comparison search paths)"
-_LATER_INT8 = "ROADMAP queue 1, item 3 (int8 payload search)"
 _LATER_PQ = "ROADMAP queue 1, item 5 (PQ)"
 
 
@@ -112,12 +114,20 @@ def _live_locs(state: IVFState, loc: torch.Tensor) -> torch.Tensor:
 def _rerank_flat(cfg, state, queries, loc, scan_impl):
     """Exact-fp32 re-rank of flat-payload survivors: gather the K' rows by
     packed location, then dequant + distance + (distance, location) sort.
+    int8 rows are residual codes, so the owning cluster's centroid is added
+    back in float32 first and the rows go through the float32 re-rank.
     Returns ([Q, K'] dists asc, [Q, K'] locs)."""
     p, t = state.pool_ids.shape
     loc = _live_locs(state, loc).to(torch.int32).contiguous()
     safe = torch.clamp(loc, min=0).long()
     rows = state.pool_payload.reshape(p * t, -1)[safe]  # [Q, K', D]
     scales = torch.ones(loc.shape, dtype=torch.float32, device=loc.device)
+    if cfg.has_scales:
+        svs = state.pool_scales.reshape(-1)[safe]
+        # free blocks own NULL: clamp for the gather (their locations are
+        # already -1 and masked)
+        owner = torch.clamp(state.block_owner[safe // t], min=0).long()
+        rows = state.centroids[owner] + rows.to(torch.float32) * svs[..., None]
     rerank = ops.rerank_topk if scan_impl == "kernel" else ref.rerank_topk_ref
     return rerank(queries, rows, scales, loc)
 
@@ -140,8 +150,6 @@ def search_union_fused(
     live candidates."""
     if cfg.payload == "pq":
         raise NotImplementedError(f"PQ payload search: {_LATER_PQ}")
-    if cfg.has_scales:
-        raise NotImplementedError(f"int8 payload search: {_LATER_INT8}")
     if scan_impl not in ("kernel", "plain"):
         raise ValueError(f"unknown scan_impl {scan_impl!r}")
     queries = queries.to(state.device, torch.float32).contiguous()
@@ -149,11 +157,25 @@ def search_union_fused(
     kp = kprime or default_kprime(k)
     if kp < k:
         raise ValueError(f"kprime {kp} < k {k}")
-    topk = ops.ivf_block_topk if scan_impl == "kernel" else ref.ivf_block_topk_ref
-    d, loc = topk(
-        queries, state.pool_payload, uc.flat_blocks, uc.owners,
-        state.pool_ids, state.pool_live, uc.probe_idx, kprime=kp,
-    )
+    if cfg.has_scales:
+        # int8 residual payload: quantize the per-probe query residuals
+        # once, then score codes against codes
+        qres = queries[:, None, :] - state.centroids[uc.probe_idx.long()]
+        q_codes, q_meta = ivf_scan.quantize_queries(qres)  # [Q, NP, D], [Q, NP, 2]
+        topk = (ops.ivf_block_topk_int8 if scan_impl == "kernel"
+                else ref.ivf_block_topk_int8_ref)
+        d, loc = topk(
+            q_codes, q_meta, state.pool_payload, state.pool_scales,
+            uc.flat_blocks, uc.owners, state.pool_ids, state.pool_live,
+            uc.probe_idx, kprime=kp,
+        )
+    else:
+        topk = (ops.ivf_block_topk if scan_impl == "kernel"
+                else ref.ivf_block_topk_ref)
+        d, loc = topk(
+            queries, state.pool_payload, uc.flat_blocks, uc.owners,
+            state.pool_ids, state.pool_live, uc.probe_idx, kprime=kp,
+        )
     if rerank:
         d, loc = _rerank_flat(cfg, state, queries, loc, scan_impl)
     # the K' rows are sorted ascending, so the k nearest are the first k
@@ -173,28 +195,40 @@ SEARCH_IMPLS = {
     "union_fused": search_union_fused,
     "union_fused_scan": partial(search_union_fused, scan_impl="plain"),
 }
+# the fused union paths are the only ones that understand int8 payloads
+# and the only ones with the re-rank epilogue
 FUSED_SEARCH_PATHS = frozenset({"union_fused", "union_fused_scan"})
+INT8_SEARCH_PATHS = FUSED_SEARCH_PATHS
 
 
 def resolve_search_impl(
     cfg: PoolConfig, path: str, rerank: bool = False
 ) -> Callable:
-    """Look up a scan path, rejecting typos, unported paths and payloads
-    loudly (a silent fallback would serve the wrong path)."""
+    """Look up a scan path, rejecting typos, payload mismatches, unported
+    paths and payloads loudly (a silent fallback would serve the wrong
+    path).  The payload rules are the reference's, checked first."""
     if path not in SEARCH_IMPLS:
         raise ValueError(
             f"unknown search_path {path!r}; expected one of "
             f"{sorted(SEARCH_IMPLS)}"
+        )
+    if cfg.payload == "pq":
+        raise NotImplementedError(f"PQ payload search: {_LATER_PQ}")
+    if cfg.has_scales and path not in INT8_SEARCH_PATHS:
+        raise NotImplementedError(
+            f"search_path {path!r} scores raw vectors; int8 payloads "
+            f"support {sorted(INT8_SEARCH_PATHS)}"
+        )
+    if rerank and path not in FUSED_SEARCH_PATHS:
+        raise NotImplementedError(
+            f"rerank is a fused-path epilogue; search_path {path!r} does "
+            f"not support it (use one of {sorted(FUSED_SEARCH_PATHS)})"
         )
     if SEARCH_IMPLS[path] is None:
         raise NotImplementedError(
             f"search_path {path!r} is not ported yet: {_LATER_PATHS}; "
             f"use one of {sorted(FUSED_SEARCH_PATHS)}"
         )
-    if cfg.payload == "pq":
-        raise NotImplementedError(f"PQ payload search: {_LATER_PQ}")
-    if cfg.has_scales:
-        raise NotImplementedError(f"int8 payload search: {_LATER_INT8}")
     return SEARCH_IMPLS[path]
 
 

@@ -142,21 +142,6 @@ block_topk_pass1(const float* __restrict__ queries, const T* __restrict__ pool,
   for (int i = threadIdx.x; i < K; i += blockDim.x) out[i] = buf[i];
 }
 
-__global__ void __launch_bounds__(kThreads)
-block_topk_merge(const unsigned long long* __restrict__ partial, int S, int K,
-                 int nbuf, float* __restrict__ out_d, int* __restrict__ out_i) {
-  extern __shared__ unsigned long long buf[];  // [nbuf] >= S*K
-  const int qi = blockIdx.x;
-  const unsigned long long* in = partial + static_cast<size_t>(qi) * S * K;
-  for (int i = threadIdx.x; i < nbuf; i += blockDim.x)
-    buf[i] = i < S * K ? in[i] : EMPTY_KEY;
-  __syncthreads();
-  bitonic_sort(buf, nbuf);
-  for (int i = threadIdx.x; i < K; i += blockDim.x)
-    store_key(buf[i], &out_d[static_cast<size_t>(qi) * K + i],
-              &out_i[static_cast<size_t>(qi) * K + i]);
-}
-
 template <typename T>
 int launch(const float* queries, const void* pool, int T_m, int D,
            const int* block_ids, const int* owners, int C, int chunk, int S,
@@ -175,12 +160,7 @@ int launch(const float* queries, const void* pool, int T_m, int D,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const int nbuf2 = next_pow2(S * K);
-  const size_t smem2 = nbuf2 * sizeof(unsigned long long);
-  err = allow_smem(block_topk_merge, smem2);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  block_topk_merge<<<Q, kThreads, smem2, st>>>(partial, S, K, nbuf2, out_d, out_i);
-  return static_cast<int>(cudaGetLastError());
+  return launch_merge(partial, Q, S, K, out_d, out_i, st);
 }
 
 }  // namespace

@@ -96,6 +96,33 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// Pass 2 of the split top-K' scans: one block per query sorts the S*K
+// partial keys of pass 1 ([Q, S, K]) and writes the first K decoded.
+__global__ void __launch_bounds__(256)
+merge_partials(const unsigned long long* __restrict__ partial, int S, int K,
+               int nbuf, float* __restrict__ out_d, int* __restrict__ out_i) {
+  extern __shared__ unsigned long long keys[];  // [nbuf] >= S*K
+  const int qi = blockIdx.x;
+  const unsigned long long* in = partial + static_cast<size_t>(qi) * S * K;
+  for (int i = threadIdx.x; i < nbuf; i += blockDim.x)
+    keys[i] = i < S * K ? in[i] : EMPTY_KEY;
+  __syncthreads();
+  bitonic_sort(keys, nbuf);
+  for (int i = threadIdx.x; i < K; i += blockDim.x)
+    store_key(keys[i], &out_d[static_cast<size_t>(qi) * K + i],
+              &out_i[static_cast<size_t>(qi) * K + i]);
+}
+
+inline int launch_merge(const unsigned long long* partial, int Q, int S, int K,
+                        float* out_d, int* out_i, cudaStream_t st) {
+  const int nbuf = next_pow2(S * K);
+  const size_t smem = nbuf * sizeof(unsigned long long);
+  const cudaError_t err = allow_smem(merge_partials, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  merge_partials<<<Q, 256, smem, st>>>(partial, S, K, nbuf, out_d, out_i);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

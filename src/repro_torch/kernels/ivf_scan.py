@@ -6,6 +6,9 @@ Same arguments, shapes, dtypes and return order as the JAX package's
 * ``coarse_topk``    — streaming coarse probe (``csrc/coarse_topk.cu``);
 * ``ivf_block_topk`` — fused block scan + streaming top-K' over float32 or
   bfloat16 blocks (``csrc/ivf_block_topk.cu``);
+* ``ivf_block_topk_int8`` — the same over int8 residual codes, scored by
+  exact integer dots against per-probe query codes
+  (``csrc/ivf_block_topk_int8.cu``);
 * ``rerank_topk``    — exact re-rank of the K' survivors
   (``csrc/rerank_topk.cu``).
 
@@ -17,7 +20,8 @@ implementation.  ``kernels/ops.py`` picks between these wrappers and the
 plain versions by the tensors' device.
 
 Every launch adds one to ``LAUNCHES[<kernel>]``, so a run can show that
-its path went through the kernels.
+its path went through the kernels.  ``quantize_queries`` is plain PyTorch:
+it prepares the int8 kernel's query side on any device.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.block_pool import quantize_int8
 from repro_torch.kernels import build
 
 # shared memory a block may use on Hopper (227 KB of the SM's 256 KB)
@@ -35,6 +40,7 @@ LAUNCHES: dict[str, int] = {
     "coarse_topk": 0,
     "ivf_block_topk[float32]": 0,
     "ivf_block_topk[bfloat16]": 0,
+    "ivf_block_topk_int8": 0,
     "rerank_topk[float32]": 0,
     "rerank_topk[bfloat16]": 0,
     "rerank_topk[int8]": 0,
@@ -46,6 +52,8 @@ _SIGNATURES = {
     "ivf_block_topk_f32": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P,
                            _I, _I, _I, _P, _P, _P, _P],
     "rerank_topk_f32": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "ivf_block_topk_int8": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P,
+                            _P, _P, _I, _I, _I, _P, _P, _P, _P],
 }
 _SIGNATURES["ivf_block_topk_bf16"] = _SIGNATURES["ivf_block_topk_f32"]
 _SIGNATURES["rerank_topk_bf16"] = _SIGNATURES["rerank_topk_f32"]
@@ -206,4 +214,80 @@ def rerank_topk(
          queries.data_ptr(), rows.data_ptr(), scales.data_ptr(),
          loc.data_ptr(), q, kp, d, out_d.data_ptr(), out_i.data_ptr())
     LAUNCHES[f"rerank_topk[{_DTYPE_NAME[rows.dtype]}]"] += 1
+    return out_d, out_i
+
+
+def quantize_queries(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization of the int8 scan's query side:
+    x [..., D] f32 -> (codes [..., D] i8, meta [..., 2] f32), meta holding
+    the scale s and the reconstructed norm ``s^2 * sum(codes^2)``.  The
+    same quantizer as the insert path, so query and pool codes share range
+    and rounding; for the residual scheme x is the [Q, NP, D] batch of
+    query residuals against every probed centroid."""
+    codes, scale = quantize_int8(x)
+    ci = codes.to(torch.int32)
+    qn = (scale * scale) * torch.sum(ci * ci, dim=-1).to(torch.float32)
+    return codes, torch.stack([scale, qn], dim=-1)
+
+
+def ivf_block_topk_int8(
+    q_codes: torch.Tensor,  # [Q, NP, D] i8 per-probe quantized query residuals
+    q_meta: torch.Tensor,  # [Q, NP, 2] f32 (scale, reconstructed norm)
+    pool: torch.Tensor,  # [P, T, D] i8 residual codes
+    pool_scales: torch.Tensor,  # [P, T] f32 per-vector dequant scales
+    block_ids: torch.Tensor,  # [C] i32 (-1 holes, scored against block 0)
+    block_owners: torch.Tensor,  # [C] i32 owning cluster (-1 = NULL slot)
+    pool_ids: torch.Tensor,  # [P, T] i32 vector ids (-1 = empty slot)
+    pool_live: torch.Tensor,  # [P, T] u8 live mask (0 = empty/tombstoned)
+    probe_idx: torch.Tensor,  # [Q, NP] i32 distinct probed clusters per query
+    *,
+    kprime: int,
+) -> tuple[torch.Tensor, torch.Tensor]:  # ([Q, K'] dist asc, [Q, K'] locations)
+    """Streaming top-``kprime`` over an int8 residual-quantized pool: each
+    member row is scored by an exact integer dot against the query
+    residual of its block's probe slot, ascending by (distance, packed
+    location ``block*T + offset``); masked-out slots come back as
+    (inf, -1)."""
+    q, npr, d = q_codes.shape
+    p, t, _ = pool.shape
+    c = block_ids.shape[0]
+    _check("q_codes", q_codes, (torch.int8,), (q, npr, d))
+    _check("q_meta", q_meta, (torch.float32,), (q, npr, 2))
+    _check("pool", pool, (torch.int8,), (p, t, d))
+    _check("pool_scales", pool_scales, (torch.float32,), (p, t))
+    _check("block_ids", block_ids, (torch.int32,), (c,))
+    _check("block_owners", block_owners, (torch.int32,), (c,))
+    _check("pool_ids", pool_ids, (torch.int32,), (p, t))
+    _check("pool_live", pool_live, (torch.uint8,), (p, t))
+    _check("probe_idx", probe_idx, (torch.int32,), (q, npr))
+    if kprime <= 0:
+        raise ValueError(f"kprime must be positive, got {kprime}")
+    if d % 4 or q_codes.data_ptr() % 4 or pool.data_ptr() % 4:
+        raise ValueError(
+            f"ivf_block_topk_int8 reads codes as 4-byte words: dim {d} must "
+            "be a multiple of 4 and the code tensors 4-byte aligned"
+        )
+    if _next_pow2(kprime + t) * 8 + d + npr * 4 > SMEM_LIMIT:
+        raise ValueError(
+            f"ivf_block_topk_int8 sorts K'+T = {kprime + t} keys in shared "
+            f"memory; that exceeds {SMEM_LIMIT} bytes"
+        )
+    dev = q_codes.device
+    if c == 0 or q == 0:  # no candidate: nothing to launch
+        return (
+            torch.full((q, kprime), float("inf"), device=dev),
+            torch.full((q, kprime), -1, dtype=torch.int32, device=dev),
+        )
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    s, chunk = split_candidates(c, q, kprime, n_sm)
+    partial = torch.empty((q, s, kprime), dtype=torch.int64, device=dev)
+    out_d = torch.empty((q, kprime), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q, kprime), dtype=torch.int32, device=dev)
+    _run("ivf_block_topk_int8", "ivf_block_topk_int8", dev,
+         q_codes.data_ptr(), q_meta.data_ptr(), pool.data_ptr(),
+         pool_scales.data_ptr(), t, d, block_ids.data_ptr(),
+         block_owners.data_ptr(), c, chunk, s, pool_ids.data_ptr(),
+         pool_live.data_ptr(), probe_idx.data_ptr(), q, npr, kprime,
+         partial.data_ptr(), out_d.data_ptr(), out_i.data_ptr())
+    LAUNCHES["ivf_block_topk_int8"] += 1
     return out_d, out_i

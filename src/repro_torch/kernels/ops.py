@@ -38,6 +38,16 @@ def ivf_block_topk(queries, pool, block_ids, block_owners, pool_ids,
     )
 
 
+def ivf_block_topk_int8(q_codes, q_meta, pool, pool_scales, block_ids,
+                        block_owners, pool_ids, pool_live, probe_idx, *,
+                        kprime):
+    """The int8 residual variant: ([Q,K'] dists asc, [Q,K'] locations)."""
+    fn = (ref.ivf_block_topk_int8_ref if _plain(q_codes)
+          else ivf_scan.ivf_block_topk_int8)
+    return fn(q_codes, q_meta, pool, pool_scales, block_ids, block_owners,
+              pool_ids, pool_live, probe_idx, kprime=kprime)
+
+
 def rerank_topk(queries, rows, scales, loc):
     """Exact re-rank epilogue: dequant + exact fp32 distance +
     (distance, location) sort."""

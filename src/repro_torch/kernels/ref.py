@@ -42,12 +42,21 @@ def coarse_topk_ref(
     return idx[:, :nprobe].to(torch.int32), srt[:, :nprobe]
 
 
-def _members(probe_idx: torch.Tensor, block_owners: torch.Tensor) -> torch.Tensor:
-    """[Q, C] membership: the candidate's owner is in the query's probe
-    list (owner -1, a NULL slot, matches nothing)."""
-    return (
-        probe_idx.long()[:, :, None] == block_owners.long()[None, None, :]
-    ).any(dim=1)
+def _pslot_from_owners(
+    probe_idx: torch.Tensor,  # [Q, NP] i32 distinct probed clusters
+    block_owners: torch.Tensor,  # [C] i32 owning cluster, -1 = NULL slot
+) -> torch.Tensor:  # [Q, C] i64 probe slot of each candidate, -1 = non-member
+    """The probe slot of a candidate is the position of its owner in the
+    query's probe list (distinct ids: at most one match)."""
+    match = probe_idx.long()[:, :, None] == block_owners.long()[None, None, :]
+    return torch.where(match.any(dim=1), torch.argmax(match.byte(), dim=1), -1)
+
+
+def _int8_scores(qn, vterm, coef, dotf):
+    """The int8 epilogue, ``qn + vterm - 2 * (coef * dot)``, one rounded
+    float32 operation at a time in the reference's order (the CUDA kernel
+    spells out the same roundings), so exact ties stay exact."""
+    return qn + vterm - 2.0 * (coef * dotf)
 
 
 def ivf_block_scan_ref(
@@ -89,7 +98,8 @@ def ivf_block_topk_ref(
     safe = torch.clamp(block_ids.long(), min=0)
     slot_ok = (pool_ids[safe] != -1) & (pool_live[safe] != 0)  # [C, T]
     locs = safe[:, None] * t + torch.arange(t, device=safe.device)[None, :]
-    ok = _members(probe_idx, block_owners)[:, :, None] & slot_ok[None]
+    member = _pslot_from_owners(probe_idx, block_owners) != -1  # [Q, C]
+    ok = member[:, :, None] & slot_ok[None]
     flat_d = torch.where(ok, scores.transpose(0, 1), INF).reshape(q, -1)
     flat_i = torch.where(ok, locs[None], -1).reshape(q, -1).to(torch.int32)
     n = flat_d.shape[1]
@@ -98,6 +108,57 @@ def ivf_block_topk_ref(
         flat_i = torch.nn.functional.pad(flat_i, (0, kprime - n), value=-1)
     srt_d, order = torch.sort(flat_d, dim=1, stable=True)
     srt_i = torch.gather(flat_i, 1, order)
+    return srt_d[:, :kprime], srt_i[:, :kprime]
+
+
+def ivf_block_topk_int8_ref(
+    q_codes: torch.Tensor,  # [Q, NP, D] i8 per-probe quantized query residuals
+    q_meta: torch.Tensor,  # [Q, NP, 2] f32 (scale, reconstructed norm)
+    pool: torch.Tensor,  # [P, T, D] i8 residual codes
+    pool_scales: torch.Tensor,  # [P, T] f32 per-vector dequant scales
+    block_ids: torch.Tensor,  # [C] i32, -1 = hole
+    block_owners: torch.Tensor,  # [C] i32 owning cluster, -1 = NULL slot
+    pool_ids: torch.Tensor,  # [P, T] i32 vector ids, -1 = empty slot
+    pool_live: torch.Tensor,  # [P, T] u8 live mask, 0 = empty/tombstoned
+    probe_idx: torch.Tensor,  # [Q, NP] i32 distinct probed clusters per query
+    *,
+    kprime: int,
+) -> tuple[torch.Tensor, torch.Tensor]:  # ([Q, K'] dist asc, [Q, K'] locations)
+    """Score every candidate row against the query residual of its probe
+    slot, mask, and sort by (distance, location): quantization makes exact
+    ties (rows with equal codes and scale), and the location breaks them.
+
+    The integer dot is taken as a float32 product: every partial sum is an
+    integer below 127 * 127 * D < 2^24 (D <= 1040), so it is exact in any
+    order, and a float32 matmul runs on the card where an int32 one does
+    not."""
+    q, _, d = q_codes.shape
+    t = pool_ids.shape[1]
+    if 127 * 127 * d >= 1 << 24:
+        raise ValueError(f"dim {d}: the int8 dot no longer fits float32 exactly")
+    pslot = _pslot_from_owners(probe_idx, block_owners)  # [Q, C]
+    safe = torch.clamp(block_ids.long(), min=0)
+    codes = pool[safe].to(torch.float32)  # [C, T, D]
+    svs = pool_scales[safe]  # [C, T]
+    slot_ok = (pool_ids[safe] != -1) & (pool_live[safe] != 0)  # [C, T]
+    locs = safe[:, None] * t + torch.arange(t, device=safe.device)[None, :]
+    sel = torch.clamp(pslot, min=0)  # [Q, C]
+    qsel = q_codes[torch.arange(q, device=sel.device)[:, None], sel]  # [Q, C, D]
+    meta = q_meta[torch.arange(q, device=sel.device)[:, None], sel]  # [Q, C, 2]
+    sq, qn = meta[..., 0], meta[..., 1]  # [Q, C]
+    cn = torch.sum(codes * codes, dim=-1)  # [C, T], exact integers
+    dots = torch.einsum("qcd,ctd->qct", qsel.to(torch.float32), codes)
+    vterm = (svs * svs) * cn  # [C, T]
+    coef = sq[:, :, None] * svs[None]  # [Q, C, T]
+    scores = _int8_scores(qn[:, :, None], vterm[None], coef, dots)
+    ok = (pslot != -1)[:, :, None] & slot_ok[None]
+    flat_d = torch.where(ok, scores, INF).reshape(q, -1)
+    flat_i = torch.where(ok, locs[None], -1).reshape(q, -1).to(torch.int32)
+    n = flat_d.shape[1]
+    if n < kprime:
+        flat_d = torch.nn.functional.pad(flat_d, (0, kprime - n), value=INF)
+        flat_i = torch.nn.functional.pad(flat_i, (0, kprime - n), value=-1)
+    srt_d, srt_i = _sort_two_keys(flat_d, flat_i)
     return srt_d[:, :kprime], srt_i[:, :kprime]
 
 

@@ -65,6 +65,27 @@ def _torch_pool(pool, dtype):
     return _t(pool).to(getattr(torch, dtype))
 
 
+def _int8_inputs(seed=0, ties=False, q=13, p=12, t=16, d=16, n_clusters=8, np_=4):
+    """The int8 scan's inputs over ``_pool_inputs``' pool layout (empty
+    slots, tombstones, holes, NULL owners, k > live): int8 codes with one
+    scale per row, and one quantized query residual per (query, probe).
+    With ``ties``, every block holds the same rows (equal codes and
+    scale), so each query meets exact ties that must come back in location
+    order."""
+    _, _, bids, owners, pids, live, probe = _pool_inputs(
+        "float32", seed, q=q, p=p, t=t, d=d, n_clusters=n_clusters, np_=np_)
+    rng = np.random.default_rng(seed + 100)
+    codes = rng.integers(-127, 128, (p, t, d)).astype(np.int8)
+    scales = rng.uniform(0.01, 0.05, (p, t)).astype(np.float32)
+    if ties:
+        codes[:], scales[:] = codes[1].copy(), scales[1].copy()
+    q_codes = rng.integers(-127, 128, (q, np_, d)).astype(np.int8)
+    sq = rng.uniform(0.01, 0.05, (q, np_)).astype(np.float32)
+    qn = (sq * sq) * np.sum(q_codes.astype(np.int32) ** 2, axis=-1).astype(np.float32)
+    q_meta = np.stack([sq, qn], axis=-1).astype(np.float32)
+    return q_codes, q_meta, codes, scales, bids, owners, pids, live, probe
+
+
 
 # ------------------------------------------------- kernels on the card ----
 
@@ -167,3 +188,80 @@ def test_rerank_topk_kernel_matches_plain(cuda, dtype):
     pd, pi = ref.rerank_topk_ref(*args)
     torch.cuda.synchronize()
     _agree(kd, ki, pd, pi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("kprime", [128, 16])
+def test_ivf_block_topk_int8_kernel_matches_plain(cuda, ties, kprime):
+    args = [_t(a).to(cuda) for a in _int8_inputs(seed=2, ties=ties)]
+    kd, ki = ivf_scan.ivf_block_topk_int8(*args, kprime=kprime)
+    pd, pi = ref.ivf_block_topk_int8_ref(*args, kprime=kprime)
+    torch.cuda.synchronize()
+    # the epilogue's roundings are spelled out in the kernel: same bits
+    assert torch.equal(ki, pi) and torch.equal(kd, pd)
+
+
+@pytest.mark.cuda
+def test_ivf_block_topk_int8_kernel_many_candidates(cuda):
+    """SIFT-like widths (D = 128, T = 1024) and enough candidates that
+    pass 1 splits them into several chunks."""
+    rng = np.random.default_rng(6)
+    q, p, t, d, n_clusters, np_ = 9, 40, 1024, 128, 12, 4
+    codes = _t(rng.integers(-127, 128, (p, t, d)).astype(np.int8))
+    codes[7] = codes[3]  # exact ties across blocks
+    scales = _t(rng.uniform(0.01, 0.05, (p, t)).astype(np.float32))
+    scales[7] = scales[3]
+    pids = _t(np.arange(p * t, dtype=np.int32).reshape(p, t))
+    live = torch.ones((p, t), dtype=torch.uint8)
+    live[:, 900:] = 0
+    owners = _t(rng.integers(0, n_clusters, p).astype(np.int32))
+    owners[7] = owners[3]
+    probe = _t(np.stack([rng.permutation(n_clusters)[:np_] for _ in range(q)])
+               .astype(np.int32))
+    q_codes = _t(rng.integers(-127, 128, (q, np_, d)).astype(np.int8))
+    q_meta = _t(np.stack([rng.uniform(0.01, 0.05, (q, np_)),
+                          rng.uniform(100, 200, (q, np_))], -1).astype(np.float32))
+    args = [a.to(cuda) for a in (q_codes, q_meta, codes, scales,
+                                 torch.arange(p, dtype=torch.int32), owners,
+                                 pids, live, probe)]
+    kd, ki = ivf_scan.ivf_block_topk_int8(*args, kprime=128)
+    pd, pi = ref.ivf_block_topk_int8_ref(*args, kprime=128)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi) and torch.equal(kd, pd)
+
+
+def _churn_on(device):
+    """A scripted insert / delete / update / compaction sequence through
+    the port's steps on one device; returns the final state."""
+    from repro_torch.core import block_pool, insert, mutate, rearrange
+
+    cfg = block_pool.PoolConfig(n_clusters=8, dim=16, block_size=16,
+                                n_blocks=60, max_chain=12, dtype="int8")
+    rng = np.random.default_rng(1)
+    modes = rng.normal(size=(8, 16)).astype(np.float32) * 3
+    state = block_pool.init_state(cfg, _t(modes), device)
+    x = modes[rng.integers(0, 8, 600)] + rng.normal(size=(600, 16)).astype(np.float32)
+    state = insert.make_insert_fn(cfg)(state, _t(x), torch.arange(600, dtype=torch.int32))
+    dead = _t(rng.choice(600, 250, replace=False).astype(np.int32))
+    state = mutate.make_delete_fn(cfg)(state, dead)
+    upd = _t(np.concatenate([rng.choice(600, 30), [700, 701]]).astype(np.int32))
+    state = mutate.make_update_fn(cfg)(state, _t(x[:32] + 0.5), upd)
+    step = rearrange.make_rearrange_fn(cfg, threshold=30, dead_frac=0.3)
+    for _ in range(64):
+        state, triggered = step(state)
+        if not triggered:
+            break
+    block_pool.check_invariants(state, cfg)
+    return state
+
+
+@pytest.mark.cuda
+def test_mutation_lane_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.core.block_pool import IVFState
+    import dataclasses
+
+    on_card, on_cpu = _churn_on(cuda), _churn_on("cpu")
+    for f in dataclasses.fields(IVFState):
+        a, b = getattr(on_card, f.name).cpu(), getattr(on_cpu, f.name)
+        assert torch.equal(a, b), f.name

@@ -62,7 +62,7 @@ def _build_both(monkeypatch, corpus, **kw):
     return j, t
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("rerank", [False, True])
 def test_ivf_index_end_to_end_matches_reference(monkeypatch, corpus, dtype, rerank):
     j, t = _build_both(monkeypatch, corpus, dtype=dtype, rerank=rerank)
@@ -102,8 +102,6 @@ def test_state_round_trip_from_reference(corpus):
         for name, arr in arrays.items():
             assert back[name].dtype == arr.dtype, name
             np.testing.assert_array_equal(back[name], arr, err_msg=name)
-        if dtype == "int8":  # int8 search arrives with a later slice
-            continue
         tcfg = tbp.PoolConfig(n_clusters=N_LISTS, dim=DIM, block_size=16,
                               n_blocks=300, max_chain=32, dtype=dtype)
         jfn = jsearch.make_search_fn(cfg, nprobe=4, k=10, path="union_fused_scan")
@@ -167,16 +165,21 @@ def test_unported_paths_and_payloads_raise(monkeypatch, corpus):
             tsearch.make_search_fn(t.pool_cfg, nprobe=4, k=10, path=path)
     with pytest.raises(ValueError, match="unknown search_path"):
         tsearch.make_search_fn(t.pool_cfg, nprobe=4, k=10, path="union_fuzed")
+    # the reference's payload rules: int8 and rerank only on fused paths
     int8 = tbp.PoolConfig(n_clusters=4, dim=8, block_size=4, n_blocks=8,
                           max_chain=2, dtype="int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        tsearch.make_search_fn(int8, nprobe=2, k=1, path="union_fused")
+    jint8 = jbp.PoolConfig(n_clusters=4, dim=8, block_size=4, n_blocks=8,
+                           max_chain=2, dtype="int8")
+    for cfg, lib in ((int8, tsearch), (jint8, jsearch)):
+        with pytest.raises(NotImplementedError, match="int8 payloads"):
+            lib.make_search_fn(cfg, nprobe=2, k=1, path="block_table")
+        lib.make_search_fn(cfg, nprobe=2, k=1, path="union_fused", rerank=True)
+    for cfg, lib in ((t.pool_cfg, tsearch), (j.pool_cfg, jsearch)):
+        with pytest.raises(NotImplementedError, match="rerank"):
+            lib.make_search_fn(cfg, nprobe=4, k=10, path="chain_walk", rerank=True)
+    assert tsearch.INT8_SEARCH_PATHS == jsearch.INT8_SEARCH_PATHS
     with pytest.raises(NotImplementedError, match="PQ"):
         tivf.IVFIndex(ivfpq_dssm40m(0.001), device="cpu")
-    for call in (lambda: t.delete([0]), lambda: t.update(corpus[0][:1], [0]),
-                 t.maybe_rearrange):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
     default = tivf.IVFIndex(dataclasses.replace(t.cfg, search_path="block_table"),
                             device="cpu")
     default.state = t.state
