@@ -16,6 +16,18 @@ int8 indexes at full width: it deletes the oldest 35% of the ids, updates
 16,384 surviving ids, checks search against deleted and stale rows,
 compacts (Alg. 3) until quiescent, and checks the invariants and recall.
 
+The ``[pq]`` phase then frees the SIFT1M indexes and runs the paper's DSSM
+deployment, ``ivfpq_dssm40m(1.0)`` (dim 64, PQ M = 16, 160,000 lists,
+T_m = 1024, nprobe 32, k 10), at full width and scale: 40,000,000 rows
+drawn on the card as ``dssm_like`` draws them (same topics, rows from
+per-chunk seeds), k-means on the first 1,280,000 rows, offline add in
+batches of 16,384, online inserts, and search batches of 64 through
+``union_fused`` (rerank off and on), ``block_table`` and ``chain_walk``
+(``use_kernel=True``, the ``pq_adc`` kernel).  It holds the routes to each
+other and the kernel paths to the plain paths, records the PQ kernels and
+``coarse_topk`` at 160,000 lists, and ends with one delete and one update
+batch.
+
 Phases print one line each.  The second-to-last line is the per-kernel
 JSON record (launches on the main path, error against the plain version,
 median ms of kernel and plain version, the card's bound); the last line is
@@ -27,6 +39,7 @@ the port's sources.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -49,6 +62,11 @@ TIMING_REPS = 20
 N_DELETED = 350_000  # churn: the oldest 35% of the corpus's ids
 UPDATE_BATCHES, UPDATE_BATCH = 4, 4096
 MUTATION_BATCH = 4096
+# the [pq] phase: the DSSM deployment's corpus and its cuts
+N_PQ_ROWS = 40_000_000
+PQ_TRAIN_ROWS = 1_280_000  # k-means sample: 8 rows per list
+PQ_ADD_BATCH = 16_384  # assign_clusters' [B, 160,000] block is 10.5 GB
+PQ_GEN_CHUNK = 1 << 20  # rows drawn per generator seed
 
 
 def log(phase: str, **fields) -> None:
@@ -195,6 +213,45 @@ def phase_main_path(base_cfg, corpus, online, queries, truth, device):
     return indexes
 
 
+def kernel_record(name, source, replaces, kern, plain, nbytes, flops,
+                  launches, atol, rate=F32_FLOP_PER_S, bit_exact=False):
+    """One kernel against its plain version on the same inputs: the top-k
+    tie rule within rtol 1e-5 and ``atol`` (or, with ``bit_exact``, equal
+    bits), then CUDA-event times of both and the card's bound; returns the
+    JSON record.  ``kern``/``plain`` return (dists, ids) or one tensor."""
+    import torch
+    from repro_torch.kernels import ref
+
+    kout, pout = kern(), plain()
+    torch.cuda.synchronize()
+    if isinstance(kout, torch.Tensor):  # plain values: no ids, no ties
+        kd, pd, ids_equal = kout, pout, True
+        close = torch.allclose(kd, pd, rtol=1e-5,
+                               atol=float(torch.as_tensor(atol).max()))
+        check(close, f"{name} disagrees with its plain version")
+    else:
+        (kd, ki), (pd, pi) = kout, pout
+        faults = ref.topk_mismatches(kd.cpu(), ki.cpu(), pd.cpu(), pi.cpu(),
+                                     rtol=1e-5, atol=atol)
+        check(not faults, f"{name} disagrees with its plain version: {faults[:3]}")
+        ids_equal = bool(torch.equal(ki, pi))
+    bit_equal = ids_equal and bool(torch.equal(kd, pd))
+    check(bit_equal or not bit_exact, f"{name} is not bit-equal to its plain version")
+    log("agree", name=name, ids_equal=ids_equal, bit_equal=bit_equal)
+    fin = torch.isfinite(kd) & torch.isfinite(pd)
+    err = float((kd[fin] - pd[fin]).abs().max()) if fin.any() else 0.0
+    b_ms, b_by = bound_ms(nbytes, flops, rate)
+    rec = {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": err, "ms": cuda_ms(kern),
+        "plain_ms": cuda_ms(plain, reps=5), "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None,
+    }
+    log("kernel", **{k: v for k, v in rec.items() if k not in ("source", "replaces")})
+    return rec
+
+
 def kernel_records(indexes, queries, vmax, counts):
     """Every kernel against its plain version at the main path's shapes, on
     the candidate list of the real index; returns the JSON records of the
@@ -212,30 +269,12 @@ def kernel_records(indexes, queries, vmax, counts):
     # distances of SIFT-like vectors carry the float32 cancellation error of
     # ||q||^2 + ||v||^2 - 2q.v, about 1e-7 of the norms: scale atol with them
     atol = (1e-6 * (qn + vmax)).cpu()
-    rtol = 1e-5
     records = []
 
     def record(name, source, replaces, kern, plain, nbytes, flops,
                rate=F32_FLOP_PER_S):
-        (kd, ki), (pd, pi) = kern(), plain()
-        torch.cuda.synchronize()
-        faults = ref.topk_mismatches(kd.cpu(), ki.cpu(), pd.cpu(), pi.cpu(),
-                                     rtol=rtol, atol=atol)
-        check(not faults, f"{name} disagrees with its plain version: {faults[:3]}")
-        log("agree", name=name, ids_equal=bool(torch.equal(ki, pi)),
-            bit_equal=bool(torch.equal(ki, pi) and torch.equal(kd, pd)))
-        fin = torch.isfinite(kd) & torch.isfinite(pd)
-        err = float((kd[fin] - pd[fin]).abs().max()) if fin.any() else 0.0
-        b_ms, b_by = bound_ms(nbytes, flops, rate)
-        rec = {
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts.get(name, 0),
-            "max_abs_err": err, "ms": cuda_ms(kern),
-            "plain_ms": cuda_ms(plain, reps=5), "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
-        }
-        log("kernel", **{k: v for k, v in rec.items() if k not in ("source", "replaces")})
-        return rec
+        return kernel_record(name, source, replaces, kern, plain, nbytes,
+                             flops, counts.get(name, 0), atol, rate)
 
     idx = indexes["float32"]
     cents = idx.state.centroids
@@ -332,7 +371,7 @@ def paths_agree(index, q, vmax, **tags) -> dict:
         out = {}
         for path in ("union_fused", "union_fused_scan"):
             fn = make_search_fn(index.pool_cfg, nprobe=index.cfg.nprobe,
-                                k=index.cfg.k, path=path,
+                                k=index.cfg.k, path=path, pq=index.pq,
                                 chain_budget=index._chain_budget(), rerank=rerank)
             out[path] = [x.cpu() for x in fn(index.state, q)]
         (kd, ki), (pd, pi) = out["union_fused"], out["union_fused_scan"]
@@ -497,6 +536,282 @@ def phase_profile(indexes, queries) -> None:
             top_ms_per_batch=[(n, round(t / len(batches) / 1e3, 4)) for n, t in top])
 
 
+def dssm_rows(n: int, dim: int, seed: int, device, stream: int = 0):
+    """[n, dim] float32 rows of ``dssm_like``'s distribution, drawn on
+    ``device``: the 256 topics as ``dssm_like(seed=seed)`` draws them, then
+    the rows in chunks of PQ_GEN_CHUNK, each from its own generator seed
+    (``dssm_like`` in one call would draw 2.56 G float64 normals on the
+    host); another ``stream`` draws other rows around the same topics.  Not
+    ``dssm_like``'s exact bytes."""
+    import numpy as np
+    import torch
+
+    topics = torch.from_numpy(
+        np.random.default_rng(seed).normal(size=(256, dim)).astype(np.float32)
+    ).to(device)
+    out = torch.empty((n, dim), device=device)
+    for i, off in enumerate(range(0, n, PQ_GEN_CHUNK)):
+        m = min(PQ_GEN_CHUNK, n - off)
+        g = torch.Generator(device=device).manual_seed(
+            seed * 1_000_003 + (stream << 32) + i)
+        assign = torch.randint(0, 256, (m,), generator=g, device=device)
+        x = topics[assign] + 0.3 * torch.randn((m, dim), generator=g, device=device)
+        out[off : off + m] = x / torch.linalg.norm(x, dim=1, keepdim=True)
+    return out
+
+
+def chunked_truth(indexed, queries, k: int, chunk: int = 1 << 20):
+    """Exact top-k ids of every query over ``indexed`` (on the card), one
+    corpus chunk at a time with a running top-k: the dense [Q, N] matrix
+    of 40M rows would be 82 GB."""
+    import torch
+
+    qn = (queries * queries).sum(1, keepdim=True)
+    best_d = torch.full((queries.shape[0], k), float("inf"), device=queries.device)
+    best_i = torch.full((queries.shape[0], k), -1, dtype=torch.int64,
+                        device=queries.device)
+    for off in range(0, indexed.shape[0], chunk):
+        x = indexed[off : off + chunk]
+        d = qn + (x * x).sum(1)[None] - 2.0 * (queries @ x.T)
+        d, i = torch.topk(d, min(k, x.shape[0]), dim=1, largest=False)
+        cat_d = torch.cat([best_d, d], 1)
+        cat_i = torch.cat([best_i, i + off], 1)
+        best_d, sel = torch.topk(cat_d, k, dim=1, largest=False)
+        best_i = torch.gather(cat_i, 1, sel)
+    return best_i.cpu().numpy()
+
+
+def pq_route(index, route: str, use_kernel: bool = True, rerank: bool = False):
+    """Point ``index`` at one PQ search route."""
+    index.cfg.search_path, index.cfg.use_kernel, index.cfg.rerank = route, use_kernel, rerank
+
+
+def served_ids_live(index, ids, tag: str) -> None:
+    """Every served id is a real inserted id that is live now."""
+    import numpy as np
+
+    got = ids[ids >= 0]
+    check(got.size > 0 and (got < index._next_id).all(), f"pq {tag}: unknown id served")
+    loc = index.state.id_map.cpu().numpy()[got]
+    live = index.state.pool_live.reshape(-1).cpu().numpy()
+    check((loc >= 0).all() and (live[np.maximum(loc, 0)] == 1).all(),
+          f"pq {tag}: a served id is not live")
+
+
+def phase_pq(device, n_rows: int = N_PQ_ROWS, scale: float = 1.0):
+    """The paper's DSSM deployment through the port's PQ path; returns the
+    JSON records of the PQ kernels and of coarse_topk at 160,000 lists.
+    ``scale`` < 1 shrinks the config (a rehearsal on the CPU)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.anns import ivfpq_dssm40m
+    from repro_torch.core import pq as pqmod
+    from repro_torch.core import search as S
+    from repro_torch.core.ivf import IVFIndex
+    from repro_torch.kernels import ivf_scan, ops, pq_adc, ref
+
+    t_phase = time.perf_counter()
+    cfg = ivfpq_dssm40m(scale)
+    # the config's default pool has 158,141 blocks for 160,000 lists
+    # (ROADMAP "Faults found"): one block per list + the capacity's blocks
+    cfg = dataclasses.replace(
+        cfg, pool_blocks=cfg.n_clusters + cfg.capacity_vectors // cfg.block_size + 16,
+    )
+    n_online = ONLINE_BATCHES * ONLINE_BATCH
+    n_queries = N_QUERY_BATCHES * QUERY_BATCH
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    rows = dssm_rows(n_rows + n_online + n_queries, cfg.dim, seed=1, device=device)
+    sync()
+    corpus = rows[:n_rows]
+    online = [rows[n_rows + i * ONLINE_BATCH : n_rows + (i + 1) * ONLINE_BATCH]
+              for i in range(ONLINE_BATCHES)]
+    queries = rows[n_rows + n_online :].cpu().numpy()  # held out: never inserted
+    log("pq-data", rows=n_rows, online=n_online, queries=n_queries, dim=cfg.dim,
+        lists=cfg.n_clusters, pq_m=cfg.pq_m, pool_blocks=cfg.pool_blocks,
+        train_rows=min(PQ_TRAIN_ROWS, n_rows), add_batch=PQ_ADD_BATCH,
+        seconds=round(time.perf_counter() - t0, 2))
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    index = IVFIndex(cfg, device=device)
+    t0 = time.perf_counter()
+    index.train(corpus[:PQ_TRAIN_ROWS])
+    sync()
+    t_train = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for off in range(0, n_rows, PQ_ADD_BATCH):
+        index.add(corpus[off : off + PQ_ADD_BATCH])
+    sync()
+    t_add = time.perf_counter() - t0
+    insert_ms = []
+    for batch in online:
+        t0 = time.perf_counter()
+        index.add(batch)
+        sync()
+        insert_ms.append((time.perf_counter() - t0) * 1e3)
+    stats = index.stats()
+    check(stats["num_dropped"] == 0, f"pq: {stats['num_dropped']} inserts dropped")
+    check(index.ntotal == n_rows + n_online, f"pq: ntotal {index.ntotal}")
+    st = index.state
+    log("pq-build", train_s=round(t_train, 2), add_s=round(t_add, 2),
+        n_add_batches=-(-n_rows // PQ_ADD_BATCH),
+        online_insert_ms=[round(x, 2) for x in insert_ms],
+        blocks_in_use=stats["blocks_in_use"], num_dropped=stats["num_dropped"],
+        ntotal=index.ntotal, max_chain_blocks=int(st.cluster_nblocks.max()),
+        chain_budget=index._chain_budget(),
+        payload_gb=round(st.pool_payload.numel() / 1e9, 3))
+
+    truth = chunked_truth(rows[: n_rows + n_online],
+                          torch.as_tensor(queries, device=device), cfg.k)
+    routes = [("union_fused", False), ("union_fused", True),
+              ("block_table", False), ("chain_walk", False)]
+    for route, rerank in routes:
+        pq_route(index, route, use_kernel=True, rerank=rerank)
+        ids, ms = serve(index, queries, rerank)
+        served_ids_live(index, ids, f"{route} rerank={rerank}")
+        rec = recall_at_10(ids, truth)
+        log("pq-search", route=route, rerank=rerank, batches=len(ms),
+            batch=QUERY_BATCH, first_ms=round(ms[0], 3),
+            median_ms=round(statistics.median(ms[1:]), 3),
+            max_ms=round(max(ms[1:]), 3), recall_at_10=round(rec, 4))
+        # a gross-failure floor; the routes' agreement is checked below
+        check(rec > 0.02, f"pq {route} rerank={rerank}: recall@10 {rec}")
+    if torch.device(device).type == "cuda":
+        log("memory", dtype="pq",
+            peak_allocated_gb=round(torch.cuda.max_memory_allocated() / 2**30, 3))
+    counts = ops.launch_counts()
+    log("kernels", path="pq", **counts)
+    for name in ("coarse_topk", "ivf_pq_block_topk", "pq_adc", "rerank_topk[float32]"):
+        check(counts[name] > 0, f"kernel {name} never launched on the pq path")
+
+    # the routes against each other and the kernel paths against the plain
+    # paths, on one batch.  A query whose 32 probed lists differ between the
+    # streaming coarse kernel and the dense probe (a near-tie at the 32nd
+    # list, within the tie rule) searches other rows: it is left out.
+    q = torch.as_tensor(queries[:QUERY_BATCH], device=device)
+    atol = 1e-6 * ((q * q).sum(1) + 1.0).cpu()  # rows are unit vectors
+    ci, cd = ops.coarse_topk(q, st.centroids, nprobe=cfg.nprobe)
+    pi, pd = S.coarse_probe(st, q, cfg.nprobe)
+    faults = ref.topk_mismatches(cd.cpu(), ci.cpu(), pd.cpu(), pi.cpu(), rtol=1e-5, atol=atol)
+    check(not faults, f"pq: coarse probes disagree {faults[:3]}")
+    same = (ci.sort(1).values == pi.sort(1).values).all(1).cpu()
+    check(int(same.sum()) >= QUERY_BATCH - 2, f"pq: {int((~same).sum())} probe sets differ")
+    out = {}
+    budget = index._chain_budget()
+    for name, path, use_kernel, rerank in (
+        ("fused", "union_fused", True, False), ("fused_plain", "union_fused_scan", True, False),
+        ("fused_rr", "union_fused", True, True), ("fused_rr_plain", "union_fused_scan", True, True),
+        ("table", "block_table", True, False), ("table_plain", "block_table", False, False),
+        ("walk", "chain_walk", True, False), ("walk_plain", "chain_walk", False, False),
+    ):
+        fn = S.make_search_fn(index.pool_cfg, nprobe=cfg.nprobe, k=cfg.k, path=path,
+                              score_fn=pqmod.pq_score_fn(index.pq, use_kernel=use_kernel),
+                              chain_budget=budget, pq=index.pq, rerank=rerank)
+        out[name] = [x.cpu() for x in fn(st, q)]
+    for a, b in (("fused", "fused_plain"), ("fused_rr", "fused_rr_plain"),
+                 ("table", "table_plain"), ("walk", "walk_plain"),
+                 ("fused", "table"), ("walk", "table")):
+        (da, ia), (db, ib) = out[a], out[b]
+        faults = ref.topk_mismatches(da[same], ia[same], db[same], ib[same],
+                                     rtol=1e-5, atol=atol[same])
+        check(not faults, f"pq: {a} and {b} disagree {faults[:3]}")
+        log("pq-paths", a=a, b=b, queries=int(same.sum()),
+            left_out=int((~same).sum()), ids_equal=bool(torch.equal(ia[same], ib[same])),
+            bit_equal=bool(torch.equal(ia[same], ib[same]) and torch.equal(da[same], db[same])))
+
+    # kernel records at the path's real shapes
+    records = []
+    n, d = st.centroids.shape
+    records.append(kernel_record(
+        f"coarse_topk[N={n}]", "src/repro_torch/kernels/csrc/coarse_topk.cu",
+        "src/repro/kernels/ivf_scan.py:153",
+        lambda: ivf_scan.coarse_topk(q, st.centroids, nprobe=cfg.nprobe)[::-1],
+        lambda: ref.coarse_topk_ref(q, st.centroids, nprobe=cfg.nprobe)[::-1],
+        4 * (q.numel() + st.centroids.numel()) + 8 * q.shape[0] * cfg.nprobe,
+        2 * q.shape[0] * n * d + 2 * n * d, counts["coarse_topk"], atol,
+    ))
+    uc = S._union_candidates(index.pool_cfg, st, q, cfg.nprobe, budget)
+    lut = pqmod.probe_residual_luts(index.pq, st.centroids, q, uc.probe_idx).contiguous()
+    c = uc.flat_blocks.numel()
+    t = st.pool_ids.shape[1]
+    member = (uc.probe_idx.long()[:, :, None] == uc.owners.long()[None, None, :]).any(1)
+    live_rows = st.pool_live[uc.flat_blocks.long()].sum(1)  # [C]
+    member_rows = int((member.long() * live_rows[None]).sum())
+    kp = S.default_kprime(cfg.k)
+    log("candidates", dtype="pq", C=c, member_pairs=int(member.sum()),
+        member_live_rows=member_rows, queries=q.shape[0], nprobe=cfg.nprobe,
+        T=t, kprime=kp, live_fraction=round(float(live_rows.sum()) / (c * t), 4))
+    args = (lut, st.pool_payload, uc.flat_blocks, uc.owners, st.pool_ids,
+            st.pool_live, uc.probe_idx)
+    records.append(kernel_record(
+        "ivf_pq_block_topk", "src/repro_torch/kernels/csrc/ivf_pq_block_topk.cu",
+        "src/repro/kernels/ivf_scan.py:892",
+        lambda: ivf_scan.ivf_pq_block_topk(*args, kprime=kp),
+        lambda: ref.ivf_pq_block_topk_ref(*args, kprime=kp),
+        # codes, ids and live bits of every candidate block, the candidate
+        # list, the tables, the probes and the output
+        c * t * (cfg.pq_m + 4 + 1) + 8 * c + 4 * lut.numel()
+        + 4 * uc.probe_idx.numel() + 8 * q.shape[0] * kp,
+        cfg.pq_m * member_rows, counts["ivf_pq_block_topk"], atol, bit_exact=True,
+    ))
+    # pq_adc as block_table calls it: every probed chain's code rows
+    probe_d, _ = S.coarse_probe(st, q, cfg.nprobe)
+    payload, _, _ = S.gather_candidate_blocks(st, probe_d, budget)
+    r = q.shape[0] * cfg.nprobe
+    codes = payload.reshape(r, budget * t, cfg.pq_m).contiguous()
+    lut_r = pqmod.probe_residual_luts(index.pq, st.centroids, q, probe_d).reshape(
+        r, cfg.pq_m, 256).contiguous()
+    log("pq-adc-shapes", R=r, N=budget * t, M=cfg.pq_m)
+    records.append(kernel_record(
+        "pq_adc", "src/repro_torch/kernels/csrc/pq_adc.cu",
+        "src/repro/kernels/pq_adc.py:26",
+        lambda: pq_adc.pq_adc(lut_r, codes),
+        lambda: ref.pq_adc_ref(lut_r, codes),
+        codes.numel() + 4 * lut_r.numel() + 4 * r * budget * t,
+        codes.numel(), counts["pq_adc"], atol, bit_exact=True,
+    ))
+    pq_route(index, "union_fused")
+    phase_profile({"pq": index}, queries)
+
+    # one delete batch and one update batch
+    dead = np.arange(MUTATION_BATCH, dtype=np.int32)
+    n_found = index.delete(dead)
+    check(n_found == MUTATION_BATCH, f"pq: delete found {n_found} of {MUTATION_BATCH}")
+    rng = np.random.default_rng(1)
+    upd_ids = rng.choice(np.arange(MUTATION_BATCH, n_rows), UPDATE_BATCH,
+                         replace=False).astype(np.int32)
+    # fresh rows around the corpus's own topics (other topics would land
+    # far from every trained centroid and codeword)
+    upd_vecs = dssm_rows(UPDATE_BATCH, cfg.dim, seed=1, device=device, stream=1)
+    t0 = time.perf_counter()
+    index.update(upd_vecs, upd_ids)
+    sync()
+    upd_ms = (time.perf_counter() - t0) * 1e3
+    check(index.stats()["num_dropped"] == 0 and int(index.state.num_missed) == 0,
+          f"pq: update stats {index.stats()}")
+    probes = np.concatenate([corpus[:256].cpu().numpy(), queries[:256]])
+    for route, rerank in routes:
+        pq_route(index, route, rerank=rerank)
+        got = np.concatenate([index.search(probes[o : o + QUERY_BATCH])[1]
+                              for o in range(0, len(probes), QUERY_BATCH)])
+        check(not np.isin(got, dead).any(), f"pq {route}: a deleted id was served")
+        served_ids_live(index, got, f"{route} after churn")
+    pq_route(index, "union_fused", rerank=True)
+    found = np.concatenate([index.search(upd_vecs[o : o + 512])[1]
+                            for o in range(0, UPDATE_BATCH, 512)])
+    ok = (found == upd_ids[:, None]).any(1)
+    check(ok.all(), f"pq: {int((~ok).sum())} updated ids not in the top 10 "
+          "for their new vectors")
+    log("pq-churn", deletes=MUTATION_BATCH, updates=UPDATE_BATCH,
+        update_ms=round(upd_ms, 3), updated_found_at_rank_1=round(float(
+            (found[:, 0] == upd_ids).mean()), 4),
+        live_vectors=index.stats()["live_vectors"])
+    log("pq", seconds=round(time.perf_counter() - t_phase, 1))
+    return records
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: the port's sources (src/repro_torch) are not "
@@ -577,6 +892,11 @@ def main() -> int:
     for name in ("coarse_topk", "ivf_block_topk[float32]", "ivf_block_topk_int8",
                  "rerank_topk[float32]"):
         check(churn_counts[name] > 0, f"kernel {name} never launched on the churn path")
+    # the DSSM deployment, once the SIFT1M indexes are freed
+    del indexes, index, indexed, data, corpus, online
+    gc.collect()
+    torch.cuda.empty_cache()
+    records += phase_pq("cuda")
     log("done", seconds=round(time.perf_counter() - t_start, 1),
         peak_allocated_gb=round(torch.cuda.max_memory_allocated() / 2**30, 3))
     print(json.dumps({"kernels": records}), flush=True)

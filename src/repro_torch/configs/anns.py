@@ -2,8 +2,13 @@
 
 * ``ivfflat_sift1m``  — SIFT1M-scale: dim 128, 4000 IVF lists (paper §4.3
   mentions "cluster number of ivf is 4000"), T_m = 1024 (deployment value).
-* ``ivfpq_dssm40m``   — the industrial DSSM corpus: dim 64, PQ M=16.  The
-  port has no PQ payload yet, so an index built from it raises.
+* ``ivfpq_dssm40m``   — the industrial DSSM corpus: dim 64, PQ M=16,
+  160,000 lists at 40M vectors.
+
+The values are the reference's (``repro.configs.anns``), pool sizing
+included: the default pools of both are smaller than their lists need at
+full scale (ROADMAP "Faults found"), so a full-scale run sets
+``pool_blocks`` itself.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""Block-pool IVF with online insertion (paper §3), in PyTorch."""
+"""Block-pool IVF (flat and PQ payloads) with online insertion (paper §3),
+in PyTorch."""
 
 from repro_torch.core.block_pool import (  # noqa: F401
     IVFState,
@@ -25,6 +26,12 @@ from repro_torch.core.mutate import (  # noqa: F401
     make_replay_fns,
     make_update_fn,
 )
+from repro_torch.core.pq import (  # noqa: F401
+    PQParams,
+    pq_from_host,
+    pq_score_fn,
+    train_pq,
+)
 from repro_torch.core.rearrange import (  # noqa: F401
     exceed,
     make_rearrange_fn,
@@ -33,5 +40,7 @@ from repro_torch.core.rearrange import (  # noqa: F401
 from repro_torch.core.search import (  # noqa: F401
     exact_search,
     make_search_fn,
+    search_block_table,
+    search_chain_walk,
     search_union_fused,
 )

@@ -1,6 +1,7 @@
-"""User-facing IVFFlat index over the block pool.
+"""User-facing IVFFlat / IVFPQ indexes over the block pool.
 
-``IVFIndex`` owns the insert and search steps and the ``IVFState``.  The
+``IVFIndex`` owns the insert and search steps, the ``IVFState`` and, for
+PQ payloads, the trained ``PQParams``.  The
 offline segment (paper §3.3) is built by k-means and by replaying batched
 inserts through the same insertion path the online segment uses — there is
 no separate bulk loader.
@@ -8,8 +9,9 @@ no separate bulk loader.
 The index runs on ``cuda`` unless the caller passes ``device="cpu"``; on a
 machine without a GPU, ``IVFIndex(cfg)`` raises rather than quietly running
 on the CPU.  Deletes, updates and compaction (Alg. 3) run through the same
-state; PQ payloads arrive with ROADMAP queue 1, item 5 and raise
-``NotImplementedError`` until then.
+state.  A PQ index encodes every row as the PQ code of its residual
+against its centroid (insert and update alike) and searches through the
+ADC tables of ``core.pq``.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import pq as pqmod
 from repro_torch.core.block_pool import IVFState, PoolConfig, init_state, pool_stats
 from repro_torch.core.insert import make_insert_fn
 from repro_torch.core.kmeans import kmeans
@@ -32,8 +35,6 @@ from repro_torch.core.search import make_search_fn
 #: serialized by ``state_to_host`` — the reference's schema, so a state
 #: written by either package loads in the other.
 STATE_SCHEMA_VERSION = 1
-
-_LATER_PQ = "ROADMAP queue 1, item 5 (PQ)"
 
 
 class StateSchemaError(RuntimeError):
@@ -119,7 +120,7 @@ class IVFIndexConfig:
     max_chain: int = 64
     pool_blocks: Optional[int] = None  # default: sized for capacity_vectors
     capacity_vectors: Optional[int] = None
-    payload: str = "flat"  # "flat" | "pq" (PQ raises until it is ported)
+    payload: str = "flat"  # "flat" | "pq"
     pq_m: int = 0
     dtype: str = "float32"  # flat payload dtype: float32 | bfloat16 | int8
     rerank: bool = False  # exact-fp32 re-rank epilogue (fused paths only)
@@ -128,10 +129,12 @@ class IVFIndexConfig:
     rearrange_threshold: int = 10_000  # T'_m (paper Table 1 sweeps this)
     dead_frac_threshold: float = 0.3
     id_capacity: Optional[int] = None
-    # the reference's path names (see core.search); only "union_fused" and
-    # "union_fused_scan" are ported so far, the others raise
+    # the reference's path names (see core.search); "union" and
+    # "union_pallas" are not ported yet and raise
     search_path: str = "block_table"
-    use_kernel: bool = False  # the reference's PQ scoring switch (unused)
+    # PQ on block_table / chain_walk: sum the ADC tables through the
+    # pq_adc kernel (ops.pq_adc) instead of the plain adc_accumulate
+    use_kernel: bool = False
     kmeans_iters: int = 10
     seed: int = 0
 
@@ -169,14 +172,14 @@ def _resolve_device(device=None) -> torch.device:
 
 
 class IVFIndex:
-    """IVFFlat with online insertion over the block pool."""
+    """IVFFlat (payload='flat') or IVFPQ (payload='pq') with online
+    insertion over the block pool."""
 
     def __init__(self, cfg: IVFIndexConfig, *, device=None):
-        if cfg.payload == "pq":
-            raise NotImplementedError(f"PQ payload: {_LATER_PQ}")
         self.cfg = cfg
         self.device = _resolve_device(device)
         self.pool_cfg = cfg.pool_config()
+        self.pq: Optional[pqmod.PQParams] = None
         self.state: Optional[IVFState] = None
         self._insert_fn = None
         self._search_fns: dict = {}
@@ -185,21 +188,30 @@ class IVFIndex:
 
     # ---------------------------------------------------------- build ----
     def train(self, x) -> None:
-        """Train the coarse quantizer on offline vectors."""
+        """Train the coarse quantizer (+ PQ codebooks) on offline vectors."""
         cents = kmeans(
             x, self.cfg.n_clusters, n_iter=self.cfg.kmeans_iters,
             seed=self.cfg.seed, device=self.device,
         )
         self.state = init_state(self.pool_cfg, torch.from_numpy(cents), self.device)
+        if self.cfg.payload == "pq":
+            # residuals of a sample against their centroid
+            xs = torch.as_tensor(x[: min(len(x), 65536)], dtype=torch.float32)
+            xs = xs.to(self.device)
+            cents_d = self.state.centroids
+            res = xs - cents_d[_assign_blockwise(xs, cents_d)]
+            self.pq = pqmod.train_pq(res.cpu().numpy(), self.cfg.pq_m,
+                                     seed=self.cfg.seed, device=self.device)
         self._build_fns()
 
     def _build_fns(self) -> None:
-        """The mutation and maintenance steps for ``pool_cfg``; apart from
-        ``train`` so that a restored state can be adopted without k-means
-        (the durability slice's ``install_state``)."""
-        self._insert_fn = make_insert_fn(self.pool_cfg)
+        """The mutation and maintenance steps for (``pool_cfg``, ``pq``);
+        apart from ``train`` so that a restored state can be adopted
+        without k-means (the durability slice's ``install_state``)."""
+        encode = pqmod.make_pq_encode_fn(self.pq) if self.pq else None
+        self._insert_fn = make_insert_fn(self.pool_cfg, encode=encode)
         self._delete_fn = make_delete_fn(self.pool_cfg)
-        self._update_fn = make_update_fn(self.pool_cfg)
+        self._update_fn = make_update_fn(self.pool_cfg, encode=encode)
         self._rearrange_fn = make_rearrange_fn(
             self.pool_cfg, self.cfg.rearrange_threshold,
             dead_frac=self.cfg.dead_frac_threshold,
@@ -272,11 +284,20 @@ class IVFIndex:
         return min(b, self.cfg.max_chain)
 
     def _search_fn(self, nprobe: int, k: int, budget: int):
-        key = (nprobe, k, self.cfg.search_path, budget, self.cfg.rerank)
+        key = (nprobe, k, self.cfg.search_path, self.cfg.use_kernel, budget,
+               self.cfg.rerank)
         if key not in self._search_fns:
+            score_fn = None
+            if self.cfg.payload == "pq":
+                # centroids come from the state argument, so cached search
+                # steps never hold a stale pool copy
+                score_fn = pqmod.pq_score_fn(
+                    self.pq, use_kernel=self.cfg.use_kernel
+                )
             self._search_fns[key] = make_search_fn(
                 self.pool_cfg, nprobe=nprobe, k=k, path=self.cfg.search_path,
-                chain_budget=budget, rerank=self.cfg.rerank,
+                score_fn=score_fn, chain_budget=budget, pq=self.pq,
+                rerank=self.cfg.rerank,
             )
         return self._search_fns[key]
 
@@ -294,6 +315,18 @@ class IVFIndex:
     @property
     def ntotal(self) -> int:
         return int(self.state.num_vectors)
+
+
+def _assign_blockwise(x: torch.Tensor, cents: torch.Tensor, chunk: int = 8192):
+    """Memory-bounded argmin assignment for large training sets (ties go
+    to the lower centroid id)."""
+    outs = []
+    cn = torch.sum(cents * cents, dim=1)
+    for i in range(0, x.shape[0], chunk):
+        xc = x[i : i + chunk]
+        d = cn[None] - (2.0 * xc) @ cents.T
+        outs.append(torch.argmin(d, dim=1))
+    return torch.cat(outs)
 
 
 def build_ivf(

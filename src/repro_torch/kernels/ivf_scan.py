@@ -3,14 +3,21 @@
 Same arguments, shapes, dtypes and return order as the JAX package's
 ``repro.kernels.ivf_scan`` wrappers of the same names:
 
-* ``coarse_topk``    — streaming coarse probe (``csrc/coarse_topk.cu``);
+* ``coarse_topk``    — streaming coarse probe over any number of
+  centroids (``csrc/coarse_topk.cu``);
 * ``ivf_block_topk`` — fused block scan + streaming top-K' over float32 or
   bfloat16 blocks (``csrc/ivf_block_topk.cu``);
 * ``ivf_block_topk_int8`` — the same over int8 residual codes, scored by
   exact integer dots against per-probe query codes
   (``csrc/ivf_block_topk_int8.cu``);
+* ``ivf_pq_block_topk`` — the same over uint8 PQ code blocks, scored by
+  ADC against the table of each block's probe slot
+  (``csrc/ivf_pq_block_topk.cu``);
 * ``rerank_topk``    — exact re-rank of the K' survivors
   (``csrc/rerank_topk.cu``).
+
+``kernels/pq_adc.py`` wraps the ADC sums of the ``block_table`` and
+``chain_walk`` PQ paths (``csrc/pq_adc.cu``) the same way.
 
 Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity and raises on anything its kernel does not take, allocates the
@@ -41,6 +48,7 @@ LAUNCHES: dict[str, int] = {
     "ivf_block_topk[float32]": 0,
     "ivf_block_topk[bfloat16]": 0,
     "ivf_block_topk_int8": 0,
+    "ivf_pq_block_topk": 0,
     "rerank_topk[float32]": 0,
     "rerank_topk[bfloat16]": 0,
     "rerank_topk[int8]": 0,
@@ -48,12 +56,16 @@ LAUNCHES: dict[str, int] = {
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "coarse_topk_f32": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "coarse_topk_f32": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                        _P],
     "ivf_block_topk_f32": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P,
                            _I, _I, _I, _P, _P, _P, _P],
     "rerank_topk_f32": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "ivf_block_topk_int8": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P,
                             _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "ivf_pq_block_topk": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _I,
+                          _I, _I, _P, _P, _P, _P],
+    "pq_adc_f32": [_P, _P, _I, _I, _I, _P, _P],  # kernels/pq_adc.py
 }
 _SIGNATURES["ivf_block_topk_bf16"] = _SIGNATURES["ivf_block_topk_f32"]
 _SIGNATURES["rerank_topk_bf16"] = _SIGNATURES["rerank_topk_f32"]
@@ -98,6 +110,40 @@ def _check(name: str, t: torch.Tensor, dtypes, shape: tuple) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def split_centroids(q: int, n: int, d: int, nprobe: int,
+                    n_sm: int) -> tuple[int, int, int, int]:
+    """(TC, CB, chunk, S): how pass 1 of ``coarse_topk`` cuts N centroids
+    into S chunks of whole tiles of TC, each query keeping an area of CB
+    candidates beside its top-NP.  TC is the largest of 64, 32, 16, 8 whose
+    tile and kQT = 8 query segments of next_pow2(NP + TC) keys fit in
+    shared memory; S gives about four blocks per SM over the query tiles,
+    while pass 2's S*NP keys of a query fit in shared memory; CB is up to
+    four tiles (fewer sorts), as far as the chunk and shared memory allow."""
+    keys_max = _next_pow2(SMEM_LIMIT // 8 + 1) // 2  # largest power of two
+    if nprobe > keys_max:
+        raise ValueError(
+            f"coarse_topk merges S*NP keys of a query in shared memory; "
+            f"nprobe {nprobe} exceeds {keys_max}"
+        )
+
+    def smem(tc: int, cb: int) -> int:
+        return 8 * 8 * _next_pow2(nprobe + cb) + 4 * (8 * d + tc * (d + 1) + tc)
+
+    tc = next((t for t in (64, 32, 16, 8) if smem(t, t) <= SMEM_LIMIT), None)
+    if tc is None:
+        raise ValueError(
+            f"coarse_topk: nprobe {nprobe} at dim {d} exceeds {SMEM_LIMIT} "
+            "bytes of shared memory"
+        )
+    q_tiles = -(-q // 8)
+    s = max(1, min(-(-n // tc), -(-4 * n_sm // q_tiles), keys_max // nprobe))
+    chunk = -(-(-(-n // s)) // tc) * tc
+    cb = tc
+    while cb < min(4 * tc, chunk) and smem(tc, 2 * cb) <= SMEM_LIMIT:
+        cb *= 2
+    return tc, cb, chunk, -(-n // chunk)
+
+
 def coarse_topk(
     queries: torch.Tensor,  # [Q, D] f32
     centroids: torch.Tensor,  # [N, D] f32
@@ -111,19 +157,17 @@ def coarse_topk(
     _check("centroids", centroids, (torch.float32,), (n, d))
     if not 0 < nprobe <= n:
         raise ValueError(f"nprobe must be in (0, {n}], got {nprobe}")
-    if (d + n) * 4 > SMEM_LIMIT:
-        raise ValueError(
-            f"coarse_topk keeps all {n} distances of a query in shared "
-            f"memory; {n} centroids of dim {d} exceed {SMEM_LIMIT} bytes"
-        )
     dev = queries.device
     out_i = torch.empty((q, nprobe), dtype=torch.int32, device=dev)
     out_d = torch.empty((q, nprobe), dtype=torch.float32, device=dev)
     if q == 0:
         return out_i, out_d
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    tc, cb, chunk, s = split_centroids(q, n, d, nprobe, n_sm)
+    partial = torch.empty((q, s, nprobe), dtype=torch.int64, device=dev)
     _run("coarse_topk", "coarse_topk_f32", dev, queries.data_ptr(),
-         centroids.data_ptr(), q, n, d, nprobe, out_i.data_ptr(),
-         out_d.data_ptr())
+         centroids.data_ptr(), q, n, d, nprobe, tc, cb, chunk, s,
+         partial.data_ptr(), out_i.data_ptr(), out_d.data_ptr())
     LAUNCHES["coarse_topk"] += 1
     return out_i, out_d
 
@@ -290,4 +334,56 @@ def ivf_block_topk_int8(
          pool_live.data_ptr(), probe_idx.data_ptr(), q, npr, kprime,
          partial.data_ptr(), out_d.data_ptr(), out_i.data_ptr())
     LAUNCHES["ivf_block_topk_int8"] += 1
+    return out_d, out_i
+
+
+def ivf_pq_block_topk(
+    lut: torch.Tensor,  # [Q, NP, M, 256] f32 per-(query, probe) ADC tables
+    pool_codes: torch.Tensor,  # [P, T, M] u8 PQ codes
+    block_ids: torch.Tensor,  # [C] i32 (-1 holes, scored against block 0)
+    block_owners: torch.Tensor,  # [C] i32 owning cluster (-1 = NULL slot)
+    pool_ids: torch.Tensor,  # [P, T] i32 vector ids (-1 = empty slot)
+    pool_live: torch.Tensor,  # [P, T] u8 live mask (0 = empty/tombstoned)
+    probe_idx: torch.Tensor,  # [Q, NP] i32 distinct probed clusters per query
+    *,
+    kprime: int,
+) -> tuple[torch.Tensor, torch.Tensor]:  # ([Q, K'] dist asc, [Q, K'] locations)
+    """Streaming top-``kprime`` over a PQ-coded pool: each member row is
+    scored by ADC with the table of its block's probe slot, ascending by
+    (distance, packed location ``block*T + offset``); masked-out slots
+    come back as (inf, -1)."""
+    q, npr, m, _ = lut.shape
+    p, t, _ = pool_codes.shape
+    c = block_ids.shape[0]
+    _check("lut", lut, (torch.float32,), (q, npr, m, 256))
+    _check("pool_codes", pool_codes, (torch.uint8,), (p, t, m))
+    _check("block_ids", block_ids, (torch.int32,), (c,))
+    _check("block_owners", block_owners, (torch.int32,), (c,))
+    _check("pool_ids", pool_ids, (torch.int32,), (p, t))
+    _check("pool_live", pool_live, (torch.uint8,), (p, t))
+    _check("probe_idx", probe_idx, (torch.int32,), (q, npr))
+    if kprime <= 0:
+        raise ValueError(f"kprime must be positive, got {kprime}")
+    if _next_pow2(kprime + t) * 8 + (m * 256 + npr) * 4 > SMEM_LIMIT:
+        raise ValueError(
+            f"ivf_pq_block_topk sorts K'+T = {kprime + t} keys beside an "
+            f"[{m}, 256] table in shared memory; that exceeds {SMEM_LIMIT} bytes"
+        )
+    dev = lut.device
+    if c == 0 or q == 0:  # no candidate: nothing to launch
+        return (
+            torch.full((q, kprime), float("inf"), device=dev),
+            torch.full((q, kprime), -1, dtype=torch.int32, device=dev),
+        )
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    s, chunk = split_candidates(c, q, kprime, n_sm)
+    partial = torch.empty((q, s, kprime), dtype=torch.int64, device=dev)
+    out_d = torch.empty((q, kprime), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q, kprime), dtype=torch.int32, device=dev)
+    _run("ivf_pq_block_topk", "ivf_pq_block_topk", dev, lut.data_ptr(),
+         pool_codes.data_ptr(), t, m, block_ids.data_ptr(),
+         block_owners.data_ptr(), c, chunk, s, pool_ids.data_ptr(),
+         pool_live.data_ptr(), probe_idx.data_ptr(), q, npr, kprime,
+         partial.data_ptr(), out_d.data_ptr(), out_i.data_ptr())
+    LAUNCHES["ivf_pq_block_topk"] += 1
     return out_d, out_i

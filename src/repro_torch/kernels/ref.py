@@ -162,6 +162,67 @@ def ivf_block_topk_int8_ref(
     return srt_d[:, :kprime], srt_i[:, :kprime]
 
 
+def pq_adc_ref(
+    lut: torch.Tensor,  # [..., M, K] per-row ADC tables
+    codes: torch.Tensor,  # [..., N, M] integer codes in [0, K)
+) -> torch.Tensor:  # [..., N] accumulated distances
+    """ADC sums ``sum_j lut[..., j, codes[..., n, j]]``, added in the order
+    j = 0..M-1 one float32 add at a time, the order of the TPU kernel and
+    of the CUDA kernel, so the kernel agrees with this bit for bit (the
+    JAX oracle's ``jnp.sum`` may add in another order).  Leading batch
+    dimensions broadcast."""
+    m, k = lut.shape[-2:]
+    batch = torch.broadcast_shapes(lut.shape[:-2], codes.shape[:-2])
+    lut = lut.expand(*batch, m, k)
+    idx = codes.long().expand(*batch, *codes.shape[-2:])
+    out = torch.zeros(idx.shape[:-1], dtype=torch.float32, device=lut.device)
+    for j in range(m):
+        out = out + torch.gather(lut[..., j, :], -1, idx[..., j])
+    return out
+
+
+def ivf_pq_block_topk_ref(
+    lut: torch.Tensor,  # [Q, NP, M, K] f32 per-(query, probe) ADC tables
+    pool_codes: torch.Tensor,  # [P, T, M] u8 PQ codes
+    block_ids: torch.Tensor,  # [C] i32, -1 = hole
+    block_owners: torch.Tensor,  # [C] i32 owning cluster, -1 = NULL slot
+    pool_ids: torch.Tensor,  # [P, T] i32 vector ids, -1 = empty slot
+    pool_live: torch.Tensor,  # [P, T] u8 live mask, 0 = empty/tombstoned
+    probe_idx: torch.Tensor,  # [Q, NP] i32 distinct probed clusters per query
+    *,
+    kprime: int,
+) -> tuple[torch.Tensor, torch.Tensor]:  # ([Q, K'] dist asc, [Q, K'] locations)
+    """Score every candidate row by ADC with the table of its probe slot
+    (the position of its owner in the query's probe list), mask, and sort
+    by (distance, location): rows that share all M codes tie exactly, and
+    the location breaks the tie.  The M entries are added in the order
+    j = 0..M-1, as in ``pq_adc_ref``."""
+    q, npr, m, ksub = lut.shape
+    t = pool_ids.shape[1]
+    dev = lut.device
+    pslot = _pslot_from_owners(probe_idx, block_owners)  # [Q, C]
+    safe = torch.clamp(block_ids.long(), min=0)
+    codes = pool_codes[safe].long()  # [C, T, M]
+    slot_ok = (pool_ids[safe] != -1) & (pool_live[safe] != 0)  # [C, T]
+    locs = safe[:, None] * t + torch.arange(t, device=dev)[None, :]
+    # row of lut viewed as [Q*NP*M, K] holding table j of each pair
+    base = (torch.arange(q, device=dev)[:, None] * npr
+            + torch.clamp(pslot, min=0)) * m  # [Q, C]
+    flat_lut = lut.reshape(-1, ksub)
+    scores = torch.zeros((q, safe.shape[0], t), dtype=torch.float32, device=dev)
+    for j in range(m):
+        scores = scores + flat_lut[(base + j)[:, :, None], codes[None, :, :, j]]
+    ok = (pslot != -1)[:, :, None] & slot_ok[None]
+    flat_d = torch.where(ok, scores, INF).reshape(q, -1)
+    flat_i = torch.where(ok, locs[None], -1).reshape(q, -1).to(torch.int32)
+    n = flat_d.shape[1]
+    if n < kprime:
+        flat_d = torch.nn.functional.pad(flat_d, (0, kprime - n), value=INF)
+        flat_i = torch.nn.functional.pad(flat_i, (0, kprime - n), value=-1)
+    srt_d, srt_i = _sort_two_keys(flat_d, flat_i)
+    return srt_d[:, :kprime], srt_i[:, :kprime]
+
+
 def topk_mismatches(d_a, i_a, d_b, i_b, *, rtol: float, atol) -> list[str]:
     """Where two top-k results ([Q, K] ascending distances and ids, on the
     CPU) disagree beyond floating-point noise.  Distances must agree

@@ -128,6 +128,24 @@ def test_cpu_dispatch_runs_plain_and_launches_nothing():
     assert sum(ops.launch_counts().values()) == 0
 
 
+@pytest.mark.parametrize("q,n,d,nprobe", [
+    (64, 4000, 128, 32), (64, 160_000, 64, 32), (1, 37, 16, 4),
+    (4096, 160_000, 64, 32), (3, 1000, 960, 500),
+])
+def test_split_centroids_plans_any_number_of_lists(q, n, d, nprobe):
+    """coarse_topk's plan: whole tiles per chunk, every centroid in one
+    chunk, pass 2's S*NP keys of a query within shared memory, and pass
+    1's tile and segments within shared memory, whatever N is."""
+    tc, cb, chunk, s = ivf_scan.split_centroids(q, n, d, nprobe, n_sm=132)
+    assert chunk % tc == 0 and s * chunk >= n > (s - 1) * chunk
+    assert s * nprobe <= 16384
+    assert cb % tc == 0 and cb & (cb - 1) == 0 and tc <= cb <= max(tc, chunk)
+    seg = 1 << (nprobe + cb - 1).bit_length()
+    assert 8 * 8 * seg + 4 * (8 * d + tc * (d + 1) + tc) <= ivf_scan.SMEM_LIMIT
+    with pytest.raises(ValueError, match="nprobe"):
+        ivf_scan.split_centroids(q, n, 1 << 14, nprobe, n_sm=132)
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     queries, cents = _coarse_inputs(3, 10, 8, seed=0)
     with pytest.raises(ValueError, match="CUDA"):

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ivf_scan, ops, ref
+from repro_torch.kernels import ivf_scan, ops, pq_adc, ref
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -86,6 +86,40 @@ def _int8_inputs(seed=0, ties=False, q=13, p=12, t=16, d=16, n_clusters=8, np_=4
     return q_codes, q_meta, codes, scales, bids, owners, pids, live, probe
 
 
+def _pq_inputs(seed=0, ties=False, q=8, npb=4, m=8, p=6, t=16, c=5, ncl=None):
+    """The PQ scan's inputs, shaped as the reference's ``_pq_topk_inputs``
+    (``tests/test_pq_fused.py``): hole candidates (-1) with NULL owners,
+    empty id slots, tombstones, owners outside a query's probe list, one
+    ADC table per (query, probe).  With ``ties``, every block holds the
+    same codes, so rows of one probe slot tie exactly and must come back
+    in location order."""
+    rng = np.random.default_rng(seed)
+    ncl = ncl or 2 * npb  # about half the (query, candidate) pairs are members
+    lut = (rng.normal(size=(q, npb, m, 256)) ** 2).astype(np.float32)
+    codes = rng.integers(0, 256, size=(p, t, m)).astype(np.uint8)
+    if ties:
+        codes[:] = codes[0].copy()
+        codes[:, 1::2] = codes[:, 0:1]  # ties inside a block as well
+    ids = rng.integers(0, p, size=(c,)).astype(np.int32)
+    ids[rng.random(c) < 0.25] = -1
+    pool_ids = rng.permutation(p * t).astype(np.int32).reshape(p, t)
+    pool_ids[rng.random((p, t)) < 0.3] = -1
+    live = (pool_ids != -1).astype(np.uint8)
+    live[rng.random((p, t)) < 0.1] = 0  # tombstones keep their stale id
+    owners = rng.integers(0, ncl, size=(c,)).astype(np.int32)
+    owners[ids == -1] = -1
+    probe = np.stack([rng.permutation(ncl)[:npb] for _ in range(q)]).astype(np.int32)
+    return lut, codes, ids, owners, pool_ids, live, probe
+
+
+def _adc_inputs(seed=0, r=6, n=40, m=8, ties=False):
+    rng = np.random.default_rng(seed)
+    lut = (rng.normal(size=(r, m, 256)) ** 2).astype(np.float32)
+    codes = rng.integers(0, 256, size=(r, n, m)).astype(np.uint8)
+    if ties:
+        codes[:, 1::2] = codes[:, 0:1]
+    return lut, codes
+
 
 # ------------------------------------------------- kernels on the card ----
 
@@ -106,6 +140,10 @@ def _agree(dk, ik, dp, ip, atol=1e-4):
 @pytest.mark.cuda
 @pytest.mark.parametrize("q,n,d,nprobe,dup", [
     (13, 37, 16, 4, False), (64, 4000, 128, 32, False), (7, 40, 16, 8, True),
+    # the DSSM deployment's lists: far more than one block's shared memory
+    (64, 160_000, 64, 32, False), (9, 20_000, 64, 40, True),
+    # chunks of 10 tiles: the candidate areas fill and are merged mid-chunk
+    (64, 40_000, 32, 16, True),
 ])
 def test_coarse_topk_kernel_matches_plain(cuda, q, n, d, nprobe, dup):
     queries, cents = _coarse_inputs(q, n, d, seed=n, dup=dup)
@@ -116,6 +154,9 @@ def test_coarse_topk_kernel_matches_plain(cuda, q, n, d, nprobe, dup):
     _agree(kd, ki, pd, pi)
     if dup:
         assert torch.equal(ki, pi)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if n >= 4000:  # pass 1 split the centroids into several chunks
+        assert ivf_scan.split_centroids(q, n, d, nprobe, n_sm)[3] > 1
 
 
 @pytest.mark.cuda
@@ -265,3 +306,49 @@ def test_mutation_lane_on_the_card_matches_the_cpu(cuda):
     for f in dataclasses.fields(IVFState):
         a, b = getattr(on_card, f.name).cpu(), getattr(on_cpu, f.name)
         assert torch.equal(a, b), f.name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("kprime", [128, 16])
+def test_ivf_pq_block_topk_kernel_matches_plain(cuda, ties, kprime):
+    args = [_t(a).to(cuda) for a in _pq_inputs(seed=3, ties=ties)]
+    kd, ki = ivf_scan.ivf_pq_block_topk(*args, kprime=kprime)
+    pd, pi = ref.ivf_pq_block_topk_ref(*args, kprime=kprime)
+    torch.cuda.synchronize()
+    # both add the M table entries in the order j = 0..M-1: same bits
+    assert torch.equal(ki, pi) and torch.equal(kd, pd)
+
+
+@pytest.mark.cuda
+def test_ivf_pq_block_topk_kernel_many_candidates(cuda):
+    """The DSSM deployment's widths (M = 16, T = 1024), quarter-full
+    blocks, exact ties across blocks, and enough candidates that pass 1
+    splits them into several chunks."""
+    lut, codes, ids, owners, pids, live, probe = _pq_inputs(
+        seed=4, q=9, npb=8, m=16, p=60, t=1024, c=60, ncl=24)
+    ids = np.arange(60, dtype=np.int32)  # ascending, as the union gives them
+    owners = np.random.default_rng(4).integers(0, 24, 60).astype(np.int32)
+    codes[7], owners[7] = codes[3], owners[3]
+    pids[:, 256:] = -1
+    args = [_t(a).to(cuda) for a in (lut, codes, ids, owners, pids, live, probe)]
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ivf_scan.split_candidates(60, 9, 128, n_sm)[0] > 1
+    kd, ki = ivf_scan.ivf_pq_block_topk(*args, kprime=128)
+    pd, pi = ref.ivf_pq_block_topk_ref(*args, kprime=128)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi) and torch.equal(kd, pd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n,m,ties", [
+    (6, 40, 8, False), (6, 40, 8, True), (64, 5000, 16, False),
+])
+def test_pq_adc_kernel_matches_plain(cuda, r, n, m, ties):
+    lut, codes = (_t(a).to(cuda) for a in _adc_inputs(seed=r, r=r, n=n, m=m, ties=ties))
+    before = ops.launch_counts()["pq_adc"]
+    got = pq_adc.pq_adc(lut, codes)
+    want = ref.pq_adc_ref(lut, codes)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert ops.launch_counts()["pq_adc"] == before + 1

@@ -160,31 +160,45 @@ def test_dense_helpers_match_reference(monkeypatch, corpus):
 def test_unported_paths_and_payloads_raise(monkeypatch, corpus):
     j, t = _build_both(monkeypatch, corpus)
     assert set(tsearch.SEARCH_IMPLS) == set(jsearch.SEARCH_IMPLS)
-    for path in ("block_table", "chain_walk", "union", "union_pallas"):
+    for path in ("union", "union_pallas"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tsearch.make_search_fn(t.pool_cfg, nprobe=4, k=10, path=path)
     with pytest.raises(ValueError, match="unknown search_path"):
         tsearch.make_search_fn(t.pool_cfg, nprobe=4, k=10, path="union_fuzed")
-    # the reference's payload rules: int8 and rerank only on fused paths
+    # the reference's payload rules: int8 and rerank only on fused paths,
+    # PQ on the fused and the gather paths
     int8 = tbp.PoolConfig(n_clusters=4, dim=8, block_size=4, n_blocks=8,
                           max_chain=2, dtype="int8")
     jint8 = jbp.PoolConfig(n_clusters=4, dim=8, block_size=4, n_blocks=8,
                            max_chain=2, dtype="int8")
-    for cfg, lib in ((int8, tsearch), (jint8, jsearch)):
+    pq = tbp.PoolConfig(n_clusters=4, dim=8, block_size=4, n_blocks=8,
+                        max_chain=2, payload="pq", pq_m=2)
+    jpq = jbp.PoolConfig(n_clusters=4, dim=8, block_size=4, n_blocks=8,
+                         max_chain=2, payload="pq", pq_m=2)
+    for cfg, pcfg, lib in ((int8, pq, tsearch), (jint8, jpq, jsearch)):
         with pytest.raises(NotImplementedError, match="int8 payloads"):
             lib.make_search_fn(cfg, nprobe=2, k=1, path="block_table")
         lib.make_search_fn(cfg, nprobe=2, k=1, path="union_fused", rerank=True)
+        with pytest.raises(NotImplementedError, match="PQ payloads"):
+            lib.make_search_fn(pcfg, nprobe=2, k=1, path="union")
+        for path in sorted(lib.PQ_SEARCH_PATHS):
+            lib.make_search_fn(pcfg, nprobe=2, k=1, path=path)
     for cfg, lib in ((t.pool_cfg, tsearch), (j.pool_cfg, jsearch)):
         with pytest.raises(NotImplementedError, match="rerank"):
             lib.make_search_fn(cfg, nprobe=4, k=10, path="chain_walk", rerank=True)
     assert tsearch.INT8_SEARCH_PATHS == jsearch.INT8_SEARCH_PATHS
-    with pytest.raises(NotImplementedError, match="PQ"):
-        tivf.IVFIndex(ivfpq_dssm40m(0.001), device="cpu")
+    assert tsearch.PQ_SEARCH_PATHS == jsearch.PQ_SEARCH_PATHS
+    # a PQ index needs its codebooks on the fused path
+    with pytest.raises(ValueError, match="PQParams"):
+        tsearch.make_search_fn(pq, nprobe=2, k=1, path="union_fused")(
+            tbp.init_state(pq, torch.zeros(4, 8), "cpu"), torch.zeros(1, 8))
+    assert tivf.IVFIndex(ivfpq_dssm40m(0.001), device="cpu").pq is None
+    # the default path, block_table, searches and agrees with union_fused
     default = tivf.IVFIndex(dataclasses.replace(t.cfg, search_path="block_table"),
                             device="cpu")
     default.state = t.state
-    with pytest.raises(NotImplementedError, match="block_table"):
-        default.search(corpus[1])
+    default._build_fns()
+    np.testing.assert_array_equal(default.search(corpus[1])[1], t.search(corpus[1])[1])
 
 
 def test_index_without_a_gpu_raises(monkeypatch):
@@ -200,6 +214,23 @@ def test_sift1m_config_matches_reference():
     assert dataclasses.asdict(ivfflat_sift1m(1.0)) == dataclasses.asdict(jcfg(1.0))
     pool = ivfflat_sift1m(1.0).pool_config()
     assert pool.n_blocks == 3969 and pool.n_clusters == 4000
+
+
+def test_dssm_config_matches_reference():
+    """The PQ deployment's config is the reference's, default pool
+    included: 80,000,000 // 1024 + 160,000 * 0.5 + 16 = 158,141 blocks for
+    160,000 lists (too few at full scale, ROADMAP "Faults found")."""
+    from repro.configs.anns import ivfpq_dssm40m as jcfg
+
+    assert dataclasses.asdict(ivfpq_dssm40m(1.0)) == dataclasses.asdict(jcfg(1.0))
+    pool = ivfpq_dssm40m(1.0).pool_config()
+    assert pool.n_blocks == 158_141 and pool.n_clusters == 160_000
+    assert pool.payload == "pq" and pool.payload_shape() == (158_141, 1024, 16)
+    assert pool.n_blocks < pool.n_clusters
+    jpool = jcfg(1.0).pool_config()
+    for name in ("n_clusters", "dim", "block_size", "n_blocks", "max_chain",
+                 "payload", "pq_m", "max_ids"):
+        assert getattr(pool, name) == getattr(jpool, name), name
 
 
 def _imports(path: Path):
