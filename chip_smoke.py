@@ -28,6 +28,20 @@ other and the kernel paths to the plain paths, records the PQ kernels and
 ``coarse_topk`` at 160,000 lists, and ends with one delete and one update
 batch.
 
+Between the main path and the churn, the ``[union]`` phase serves the
+query batches of the float32 and bfloat16 SIFT1M indexes through the
+comparison paths ``union`` (plain versions) and ``union_pallas``
+(``coarse_topk`` + ``ivf_block_scan``) beside ``union_fused``: ids equal
+under the tie rule, same recall@10, ms per batch side by side.  Last, the
+``[lm]`` phase serves llama3-8b at full width and depth (8.03 B bf16
+weights drawn on the card) through the paged-KV decode: 16 sequences of
+a 512-token prompt fed one token per step (the card synchronised around
+each: step latency), then 64 greedy tokens queued back to back (step
+throughput), with ``paged_decode_attention`` once per layer and step; it
+holds the logits to
+the contiguous-cache decode on the same tokens and records the kernel at
+the served shapes and at a 32,768-position context.
+
 Phases print one line each.  The second-to-last line is the per-kernel
 JSON record (launches on the main path, error against the plain version,
 median ms of kernel and plain version, the card's bound); the last line is
@@ -49,10 +63,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM: HBM rate, float32 rate outside the tensor cores and int8 rate
-# of the tensor cores (NVIDIA's data sheet)
+# H100 SXM: HBM rate, float32 rate outside the tensor cores, bf16 and int8
+# rates of the tensor cores (NVIDIA's data sheet, dense).  A kernel whose
+# products take bf16 operands is bounded at the bf16 rate, whatever units
+# it runs them on
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 INT8_OP_PER_S = 1979e12
 
 N_BASE = 1_000_000  # the deployment's corpus
@@ -67,6 +84,28 @@ N_PQ_ROWS = 40_000_000
 PQ_TRAIN_ROWS = 1_280_000  # k-means sample: 8 rows per list
 PQ_ADD_BATCH = 16_384  # assign_clusters' [B, 160,000] block is 10.5 GB
 PQ_GEN_CHUNK = 1 << 20  # rows drawn per generator seed
+# the [lm] phase: llama3-8b serving through the paged-KV decode
+LM_BATCH, LM_PROMPT, LM_GEN, LM_BLOCK = 16, 512, 64, 16
+LM_PROFILE_STEPS = 4
+# paged vs contiguous decode, max |logit difference|: both run the same
+# bf16 products and differ only inside attention (the kernel keeps the
+# softmax weights in float32, the contiguous path rounds them to bf16).
+# A float32-weights emulation of the kernel at llama3-8b's depth (32
+# layers, bf16, d_model 256-512) on the CPU differed by at most 0.115 at
+# logits of RMS 1.0; the limit leaves 2x for the wider model and the
+# 16 x 128,256 logits of a step
+LM_LOGIT_TOL = 0.25
+DECODE_32K_BATCH = 32  # LM_SHAPES["decode_32k"] has 128: cut to fit the
+# plain version's gathered float32 copy beside the pool
+# paged attention against its plain version computed in float32 from the
+# same bf16 values: both round a float32 result to bf16, and the two float32
+# results differ only in the order of sums (about 1e-6 of the value), so an
+# output may move by one bf16 unit in the last place, at most 2^-7 of its
+# value; outputs near 0 get 1e-2 of the outputs' RMS
+ATTN_RTOL, ATTN_ATOL_RMS = 2.0**-7, 1e-2
+# SDPA (the library yardstick) rounds its softmax weights to bf16 before
+# the second product: held to the same plain version, 5x looser
+LIBRARY_ATTN_SLACK = 5
 
 
 def log(phase: str, **fields) -> None:
@@ -214,25 +253,28 @@ def phase_main_path(base_cfg, corpus, online, queries, truth, device):
 
 
 def kernel_record(name, source, replaces, kern, plain, nbytes, flops,
-                  launches, atol, rate=F32_FLOP_PER_S, bit_exact=False):
+                  launches, atol, rate=F32_FLOP_PER_S, bit_exact=False,
+                  rtol=1e-5, library=None):
     """One kernel against its plain version on the same inputs: the top-k
-    tie rule within rtol 1e-5 and ``atol`` (or, with ``bit_exact``, equal
-    bits), then CUDA-event times of both and the card's bound; returns the
-    JSON record.  ``kern``/``plain`` return (dists, ids) or one tensor."""
+    tie rule within ``rtol`` and ``atol`` (or, with ``bit_exact``, equal
+    bits), then CUDA-event times of both, of ``library`` (one PyTorch call
+    computing the same function, where there is one) and the card's bound;
+    returns the JSON record.  ``kern``/``plain`` return (dists, ids) or one
+    tensor."""
     import torch
     from repro_torch.kernels import ref
 
     kout, pout = kern(), plain()
     torch.cuda.synchronize()
     if isinstance(kout, torch.Tensor):  # plain values: no ids, no ties
-        kd, pd, ids_equal = kout, pout, True
-        close = torch.allclose(kd, pd, rtol=1e-5,
+        kd, pd, ids_equal = kout.float(), pout.float(), True
+        close = torch.allclose(kd, pd, rtol=rtol,
                                atol=float(torch.as_tensor(atol).max()))
         check(close, f"{name} disagrees with its plain version")
     else:
         (kd, ki), (pd, pi) = kout, pout
         faults = ref.topk_mismatches(kd.cpu(), ki.cpu(), pd.cpu(), pi.cpu(),
-                                     rtol=1e-5, atol=atol)
+                                     rtol=rtol, atol=atol)
         check(not faults, f"{name} disagrees with its plain version: {faults[:3]}")
         ids_equal = bool(torch.equal(ki, pi))
     bit_equal = ids_equal and bool(torch.equal(kd, pd))
@@ -246,7 +288,8 @@ def kernel_record(name, source, replaces, kern, plain, nbytes, flops,
         "replaces": replaces, "launches": launches,
         "max_abs_err": err, "ms": cuda_ms(kern),
         "plain_ms": cuda_ms(plain, reps=5), "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": None,
+        "bound_by": b_by,
+        "library_ms": None if library is None else cuda_ms(library),
     }
     log("kernel", **{k: v for k, v in rec.items() if k not in ("source", "replaces")})
     return rec
@@ -333,6 +376,8 @@ def kernel_records(indexes, queries, vmax, counts):
                 c * t * (d * esize + 5) + 8 * c + 4 * q.numel()
                 + 4 * uc.probe_idx.numel() + 8 * q.shape[0] * kp,
                 2 * member_pairs * t * d + 2 * c * t * d,
+                # a bf16 block meets the query rounded to bf16
+                rate=BF16_FLOP_PER_S if dtype == "bfloat16" else F32_FLOP_PER_S,
             ))
             _, loc = ivf_scan.ivf_block_topk(*args, kprime=kp)
         loc = S._live_locs(state, loc).to(torch.int32).contiguous()
@@ -386,6 +431,128 @@ def paths_agree(index, q, vmax, **tags) -> dict:
 def phase_paths_agree(indexes, queries, vmax) -> None:
     for dtype, index in indexes.items():
         paths_agree(index, queries[:QUERY_BATCH], vmax, dtype=dtype)
+
+
+def probe_sets_equal(index, batches, atol):
+    """Per query, whether the streaming coarse kernel and the dense probe
+    pick the same set of lists; they must agree under the tie rule, and at
+    most one query in 32 may differ by a near-tie."""
+    import numpy as np
+    import torch
+    from repro_torch.core import search as S
+    from repro_torch.kernels import ops, ref
+
+    st, nprobe, same = index.state, index.cfg.nprobe, []
+    for n, b in enumerate(batches):
+        q = torch.as_tensor(b, device=index.device)
+        ci, cd = ops.coarse_topk(q, st.centroids, nprobe=nprobe)
+        pi, pd = S.coarse_probe(st, q, nprobe)
+        rows = slice(n * QUERY_BATCH, n * QUERY_BATCH + len(b))
+        faults = ref.topk_mismatches(cd.cpu(), ci.cpu(), pd.cpu(), pi.cpu(),
+                                     rtol=1e-5, atol=atol[rows])
+        check(not faults, f"coarse probes disagree {faults[:3]}")
+        same.append((ci.sort(1).values == pi.sort(1).values).all(1).cpu().numpy())
+    same = np.concatenate(same)
+    check(int((~same).sum()) <= len(same) // 32,
+          f"{int((~same).sum())} of {len(same)} probe sets differ")
+    return same
+
+
+def phase_union(indexes, queries, truth, vmax) -> list:
+    """The ``union`` and ``union_pallas`` comparison paths on the float32
+    and bfloat16 indexes: every query batch through ``union_fused``,
+    ``union`` (plain versions) and ``union_pallas`` (``coarse_topk`` and
+    ``ivf_block_scan``), ms per batch side by side, ids equal to
+    ``union_fused``'s under the tie rule and recall@10 equal up to ids
+    swapped inside a tie; then the ``ivf_block_scan`` records at the
+    path's shapes.  Returns the JSON records."""
+    import numpy as np
+    import torch
+    from repro_torch.core import search as S
+    from repro_torch.kernels import ivf_scan, ops, ref
+
+    batches = [queries[o : o + QUERY_BATCH] for o in range(0, len(queries), QUERY_BATCH)]
+    qn = (torch.as_tensor(queries) ** 2).sum(1)
+    atol = 1e-6 * (qn + vmax)
+    paths = ("union_fused", "union", "union_pallas")
+    out = {}
+    ops.reset_launch_counts()
+    for dtype in ("float32", "bfloat16"):
+        index = indexes[dtype]
+        for path in paths:
+            index.cfg.search_path = path
+            ds, ids, ms = [], [], []
+            for b in batches:
+                t0 = time.perf_counter()
+                d, i = index.search(b)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                ds.append(d)
+                ids.append(i)
+            out[dtype, path] = (np.concatenate(ds), np.concatenate(ids), ms)
+        index.cfg.search_path = "union_fused"
+    counts = ops.launch_counts()
+    log("kernels", path="union", **counts)
+    for dtype in ("float32", "bfloat16"):
+        name = f"ivf_block_scan[{dtype}]"
+        check(counts[name] == len(batches),
+              f"{name}: {counts[name]} launches for {len(batches)} union_pallas batches")
+        # union probes densely (the reference's jnp route), union_fused and
+        # union_pallas through coarse_topk: a query whose 32 probed lists
+        # differ (a near-tie at the 32nd list, within the tie rule) scans
+        # other rows on union, and is left out of that comparison only
+        same = probe_sets_equal(indexes[dtype], batches, atol)
+        fd, fi, fms = out[dtype, "union_fused"]
+        for path in ("union", "union_pallas"):
+            keep = same if path == "union" else np.ones_like(same)
+            d, i, ms = out[dtype, path]
+            faults = ref.topk_mismatches(
+                torch.from_numpy(d[keep]), torch.from_numpy(i[keep]),
+                torch.from_numpy(fd[keep]), torch.from_numpy(fi[keep]),
+                rtol=1e-5, atol=atol[torch.from_numpy(keep)])
+            check(not faults, f"{dtype} {path} disagrees with union_fused: {faults[:3]}")
+            rec, rec_f = recall_at_10(i[keep], truth[keep]), recall_at_10(fi[keep], truth[keep])
+            n_diff = int((i[keep] != fi[keep]).sum())
+            check(abs(rec - rec_f) * truth[keep].size <= n_diff,
+                  f"{dtype} {path}: recall@10 {rec} vs union_fused {rec_f}")
+            log("union", dtype=dtype, path=path, batches=len(ms), batch=QUERY_BATCH,
+                first_ms=round(ms[0], 3), median_ms=round(statistics.median(ms[1:]), 3),
+                max_ms=round(max(ms[1:]), 3),
+                union_fused_median_ms=round(statistics.median(fms[1:]), 3),
+                queries=int(keep.sum()), left_out=int((~keep).sum()),
+                recall_at_10=round(rec, 4), union_fused_recall_at_10=round(rec_f, 4),
+                recall_at_10_all=round(recall_at_10(i, truth), 4),
+                union_fused_recall_at_10_all=round(recall_at_10(fi, truth), 4),
+                ids_equal=n_diff == 0, ids_differing=n_diff)
+
+    records = []
+    for dtype in ("float32", "bfloat16"):
+        index = indexes[dtype]
+        st = index.state
+        q = torch.as_tensor(queries[:QUERY_BATCH], device=index.device)
+        uc = S._union_candidates(index.pool_cfg, st, q, index.cfg.nprobe,
+                                 index._chain_budget())
+        c = uc.flat_blocks.numel()
+        _, t, d = st.pool_payload.shape
+        log("candidates", dtype=dtype, path="union_pallas", C=c, queries=q.shape[0],
+            T=t, scores_gb=round(4 * c * q.shape[0] * t / 1e9, 3))
+        args = (q, st.pool_payload, uc.flat_blocks)
+        # no single PyTorch call gathers the blocks and returns squared L2
+        # (torch.cdist needs the gathered copy and returns the root): null
+        records.append(kernel_record(
+            f"ivf_block_scan[{dtype}]", "src/repro_torch/kernels/csrc/ivf_block_scan.cu",
+            "src/repro/kernels/ivf_scan.py:91",
+            lambda: ivf_scan.ivf_block_scan(*args),
+            lambda: ref.ivf_block_scan_ref(*args),
+            # the candidate blocks, the queries and ids read once, the
+            # [C, Q, T] scores written once
+            c * t * d * st.pool_payload.element_size() + 4 * q.numel() + 4 * c
+            + 4 * c * q.shape[0] * t,
+            2 * c * q.shape[0] * t * d,
+            counts[f"ivf_block_scan[{dtype}]"], atol[:QUERY_BATCH],
+            # a bf16 block meets the query rounded to bf16
+            rate=BF16_FLOP_PER_S if dtype == "bfloat16" else F32_FLOP_PER_S,
+        ))
+    return records
 
 
 def phase_churn(index, dtype, indexed, queries, vmax, upd_ids, upd_vecs) -> None:
@@ -500,13 +667,25 @@ def phase_churn(index, dtype, indexed, queries, vmax, upd_ids, upd_vecs) -> None
     index.cfg.rerank = False
 
 
+def _device_ms_by_kernel(prof) -> dict:
+    """Device time (ms) by kernel name from a torch.profiler run."""
+    from torch.autograd import DeviceType
+
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].replace("void ", "")[-48:]
+            by_name[name] = by_name.get(name, 0.0) + e.device_time_total / 1e3
+    return by_name
+
+
 def phase_profile(indexes, queries) -> None:
     """Where a served batch's time goes: device time by kernel over the
     query batches (rerank on) under torch.profiler, and the device's busy
     share of the wall time (profiling slows the host side, so the idle
     share read here is an upper bound)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     batches = [queries[o : o + QUERY_BATCH] for o in range(0, len(queries), QUERY_BATCH)]
@@ -519,21 +698,16 @@ def phase_profile(indexes, queries) -> None:
             for b in batches:
                 index.search(b)
             torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+            wall_ms = (time.perf_counter() - t0) * 1e3
         index.cfg.rerank = False
-        by_name: dict[str, float] = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                name = e.name.replace("(anonymous namespace)::", "")
-                name = name.split("(")[0].replace("void ", "")[-48:]
-                by_name[name] = by_name.get(name, 0.0) + e.device_time_total
-        busy_us = sum(by_name.values())
+        by_name = _device_ms_by_kernel(prof)
+        busy = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         log("profile", dtype=dtype, rerank=True, batches=len(batches),
-            wall_ms_per_batch=round(wall_us / len(batches) / 1e3, 4),
-            device_ms_per_batch=round(busy_us / len(batches) / 1e3, 4),
-            device_idle_share=round(1 - busy_us / wall_us, 4) if busy_us else "not measured",
-            top_ms_per_batch=[(n, round(t / len(batches) / 1e3, 4)) for n, t in top])
+            wall_ms_per_batch=round(wall_ms / len(batches), 4),
+            device_ms_per_batch=round(busy / len(batches), 4),
+            device_idle_share=round(1 - busy / wall_ms, 4) if busy else "not measured",
+            top_ms_per_batch=[(n, round(t / len(batches), 4)) for n, t in top])
 
 
 def dssm_rows(n: int, dim: int, seed: int, device, stream: int = 0):
@@ -812,6 +986,271 @@ def phase_pq(device, n_rows: int = N_PQ_ROWS, scale: float = 1.0):
     return records
 
 
+def _leaves(tree: dict):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
+
+
+def phase_lm(device="cuda", cfg=None) -> list:
+    """llama3-8b at full width and depth (weights drawn on the card from
+    seed 0) served through the paged-KV decode: LM_BATCH sequences, each a
+    LM_PROMPT-token prompt (token ids from seed 1) fed one token per
+    ``paged_decode_step`` (the reference's paged path has no prefill), then
+    LM_GEN greedy tokens.  Step times (prompt steps synchronised one by
+    one; generated steps queued back to back and timed by CUDA events),
+    tokens/s, the paged attention's share of a step's device time
+    (torch.profiler over LM_PROFILE_STEPS generated steps, left out of the
+    step times), peak memory; every step launches
+    the kernel once per layer.  The contiguous-cache ``decode_step`` then
+    runs on the same weights and the same (teacher-forced) tokens: logits
+    within LM_LOGIT_TOL, greedy tokens equal wherever the paged logits'
+    top-2 margin exceeds twice that (each of the two logits may move by
+    it).  Returns the JSON records of the kernel at the served shapes and
+    at ``LM_SHAPES["decode_32k"]``'s context.  ``cfg`` (default llama3-8b's
+    full config) is for a rehearsal at a small size."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import decode_step, init_kv_cache, init_lm
+    from repro_torch.serving.paged_lm import init_paged_kv, make_paged_decode_fn
+
+    t_phase = time.perf_counter()
+    cfg = cfg or get_arch("llama3-8b").config
+    b, steps = LM_BATCH, LM_PROMPT + LM_GEN
+    resident = torch.cuda.memory_allocated()  # left by the earlier phases
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_lm(0, cfg, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    check(n_params == cfg.n_params, f"lm: {n_params} parameters, config says {cfg.n_params}")
+    per_seq = steps // LM_BLOCK
+    state = init_paged_kv(cfg, b, n_blocks=b * per_seq + 16, block_size=LM_BLOCK,
+                          max_blocks_per_seq=per_seq, device=device)
+    kv_bytes = 2 * state.k_pool.numel() * state.k_pool.element_size()
+    log("lm-init", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, d_head=cfg.d_head, d_ff=cfg.d_ff,
+        vocab=cfg.vocab, params=n_params, weights_gb=round(weight_bytes / 1e9, 3),
+        pool_blocks=state.k_pool.shape[1], block_size=LM_BLOCK,
+        blocks_per_seq=per_seq, kv_pool_gb=round(kv_bytes / 1e9, 3),
+        seconds=round(time.perf_counter() - t0, 2),
+        resident_before_gb=round(resident / 2**30, 3),
+        peak_allocated_gb=round(torch.cuda.max_memory_allocated() / 2**30, 3))
+    torch.cuda.reset_peak_memory_stats()
+
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (LM_PROMPT, b)).astype(np.int32)).to(device)
+    step = make_paged_decode_fn(cfg)
+    fed = torch.empty((steps, b), dtype=torch.int32, device=device)
+    logits = torch.empty((steps, b, cfg.vocab), dtype=cfg.dtype, device=device)
+    prof_at = range(steps - 2 * LM_PROFILE_STEPS, steps - LM_PROFILE_STEPS)
+    # prompt steps: the card is synchronised around each, so a step's time
+    # is its latency (host and card in series).  Generated steps are queued
+    # back to back, as a server runs them: a CUDA event after each, and a
+    # step's time is the gap between its event and the previous one
+    ms, per_step, done = [], [], {}
+    ops.reset_launch_counts()
+    tok = prompt[0]
+    for s in range(steps):
+        fed[s] = tok
+        if s == prof_at.start:
+            torch.cuda.synchronize()
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.__enter__()
+            t_prof = time.perf_counter()
+        n0 = ops.launch_counts()["paged_decode_attention"]
+        if s < LM_PROMPT:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        lg, state = step(params, tok, state)
+        if s < LM_PROMPT:
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        else:
+            done[s] = torch.cuda.Event(enable_timing=True)
+            done[s].record()
+        per_step.append(ops.launch_counts()["paged_decode_attention"] - n0)
+        if s == prof_at.stop - 1:
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t_prof) * 1e3
+            prof.__exit__(None, None, None)
+        logits[s] = lg
+        tok = prompt[s + 1] if s + 1 < LM_PROMPT else torch.argmax(lg, -1).to(torch.int32)
+    torch.cuda.synchronize()
+    # left out: the first generated step (it follows a synchronised one) and
+    # the steps in and just after the profiled window
+    gen_ms = [done[s - 1].elapsed_time(done[s]) for s in range(LM_PROMPT + 1, steps)
+              if s not in prof_at and s != prof_at.stop]
+    counts = ops.launch_counts()
+    log("kernels", path="lm", **counts)
+    check(set(per_step) == {cfg.n_layers},
+          f"lm: paged_decode_attention launches per step {sorted(set(per_step))}")
+    check(int(state.seq_lens.min()) == steps and int(state.cur_p) == b * per_seq,
+          f"lm: lengths {state.seq_lens.tolist()}, cur_p {int(state.cur_p)}")
+    check(bool(torch.isfinite(logits).all()), "lm: non-finite logits")
+    by_name = _device_ms_by_kernel(prof)
+    busy = sum(by_name.values())
+    attn = sum(t for n, t in by_name.items() if "paged_attn" in n)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log("lm-serve", batch=b, prompt=LM_PROMPT, generated=LM_GEN, steps=steps,
+        first_step_ms=round(ms[0], 3),
+        prompt_step_median_ms=round(statistics.median(ms[1:]), 3),
+        prompt_step_max_ms=round(max(ms[1:]), 3),
+        decode_steps_timed=len(gen_ms),
+        decode_step_median_ms=round(statistics.median(gen_ms), 3),
+        decode_step_max_ms=round(max(gen_ms), 3),
+        decode_tokens_per_s=round(b * len(gen_ms) / (sum(gen_ms) / 1e3), 1),
+        weight_read_bound_ms=round(weight_bytes / HBM_BYTES_PER_S * 1e3, 3),
+        launches_per_step=cfg.n_layers)
+    log("lm-profile", steps=LM_PROFILE_STEPS, context=f"{prof_at.start}..{prof_at.stop - 1}",
+        wall_ms_per_step=round(wall_ms / LM_PROFILE_STEPS, 3),
+        device_ms_per_step=round(busy / LM_PROFILE_STEPS, 3),
+        device_idle_share=round(1 - busy / wall_ms, 4) if busy else "not measured",
+        paged_attention_ms_per_step=round(attn / LM_PROFILE_STEPS, 4),
+        paged_attention_share_of_device=round(attn / busy, 4) if busy else "not measured",
+        top_ms_per_step=[(n, round(t / LM_PROFILE_STEPS, 4)) for n, t in top])
+    log("memory", path="lm", stage="serve",
+        peak_allocated_gb=round(torch.cuda.max_memory_allocated() / 2**30, 3),
+        logits_buffer_gb=round(logits.numel() * logits.element_size() / 2**30, 3))
+
+    # the contiguous cache on the same weights and tokens
+    cache = init_kv_cache(cfg, b, steps, device=device)
+    errs, cms, compared, agreed = [], [], 0, 0
+    for s in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clg, cache = decode_step(params, cfg, fed[s], cache, s)
+        torch.cuda.synchronize()
+        cms.append((time.perf_counter() - t0) * 1e3)
+        plg = logits[s].float()
+        errs.append((clg.float() - plg).abs().max())
+        if LM_PROMPT - 1 <= s < steps - 1:  # its argmax was fed at s + 1
+            top2 = plg.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > 2 * LM_LOGIT_TOL
+            same = torch.argmax(clg.float(), -1).to(torch.int32) == fed[s + 1]
+            compared += int(sure.sum())
+            agreed += int((same & sure).sum())
+    errs = torch.stack(errs).cpu()
+    log("lm-check", tol=LM_LOGIT_TOL, max_abs_err=float(errs.max()),
+        median_step_max_err=float(errs.median()),
+        logit_rms=round(float(torch.stack([lg.float().pow(2).mean() for lg in logits])
+                              .mean().sqrt()), 4),
+        greedy_compared=compared, greedy_agreed=agreed,
+        greedy_total=b * LM_GEN, contiguous_step_median_ms=round(statistics.median(cms[1:]), 3))
+    check(float(errs.max()) <= LM_LOGIT_TOL,
+          f"lm: paged and contiguous logits differ by {float(errs.max())}")
+    check(agreed == compared, f"lm: greedy tokens differ at {compared - agreed} of {compared}")
+    del cache, logits
+    return lm_kernel_records(cfg, params, state, counts, device, t_phase)
+
+
+def lm_kernel_records(cfg, params, state, counts, device, t_phase) -> list:
+    """``paged_decode_attention`` against its plain version: on the served
+    cache (last layer, the step's query shapes), then on one layer's pool
+    at ``LM_SHAPES["decode_32k"]``'s 32,768 positions for DECODE_32K_BATCH
+    sequences, full lengths, and a check at mixed lengths including 0.
+    The plain version runs in float32 on the same bf16 values (the kernel
+    computes in float32) and rounds its result to bf16 as the kernel
+    does; outputs agree within ATTN_RTOL of their value plus
+    ATTN_ATOL_RMS of the outputs' RMS."""
+    import torch
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.kernels import paged_attention, ref
+
+    def plain_f32(q, kp, vp):
+        kf, vf = kp.float(), vp.float()
+        return lambda *rest: ref.paged_decode_attention_ref(
+            q.float(), kf, vf, *rest).to(q.dtype)
+
+    def limits(name, want):
+        rms = float(want.float().pow(2).mean().sqrt())
+        log("attn-tol", name=name, output_rms=rms, rtol=ATTN_RTOL,
+            atol=ATTN_ATOL_RMS * rms)
+        return ATTN_ATOL_RMS * rms
+
+    def record(name, q, kp, vp, tables, lengths):
+        b, h, dh = q.shape
+        s_max = tables.shape[1] * kp.shape[1]
+        args = (q, kp, vp, tables, lengths)
+        plain = plain_f32(q, kp, vp)
+        want = plain(tables, lengths)
+        atol = limits(name, want)
+        # K and V of every resident position read once, q read and the
+        # output written once, the tables and lengths
+        n_pos = int(lengths.clamp(max=s_max).sum())
+        nbytes = ((2 * n_pos * kp.shape[2] * dh + 2 * q.numel()) * q.element_size()
+                  + 4 * (tables.numel() + lengths.numel()))
+        # the library yardstick: one SDPA call (enable_gqa) over K/V that
+        # were gathered to [B, KVH, S, dh] beforehand, the gather excluded
+        safe = tables.clamp(min=0).long()
+        kg = kp[safe].reshape(b, s_max, kp.shape[2], dh).transpose(1, 2).contiguous()
+        vg = vp[safe].reshape(b, s_max, kp.shape[2], dh).transpose(1, 2).contiguous()
+        check(bool((lengths == s_max).all()), f"{name}: SDPA needs full lengths")
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], kg, vg, enable_gqa=True)[:, :, 0]
+        lib_err = float((sdpa().float() - want.float()).abs().max())
+        log("agree", name=f"{name} library (SDPA)", max_abs_err=lib_err)
+        torch.testing.assert_close(sdpa().float(), want.float(),
+                                   rtol=LIBRARY_ATTN_SLACK * ATTN_RTOL,
+                                   atol=LIBRARY_ATTN_SLACK * atol)
+        rec = kernel_record(
+            name, "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+            "src/repro/kernels/paged_attention.py:32",
+            lambda: paged_attention.paged_decode_attention(*args),
+            lambda: plain(tables, lengths),
+            nbytes, 4 * n_pos * h * dh,  # both products, every head
+            counts["paged_decode_attention"], atol, rtol=ATTN_RTOL,
+            rate=BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S,
+            library=sdpa,
+        )
+        del kg, vg, want, plain
+        return rec
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    b, h, dh = LM_BATCH, cfg.n_heads, cfg.d_head
+    q = torch.randn((b, h, dh), generator=gen, device=device).to(cfg.dtype)
+    last = cfg.n_layers - 1
+    records = [record("paged_decode_attention[serve]", q, state.k_pool[last],
+                      state.v_pool[last], state.block_tables, state.seq_lens)]
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one layer's pool at decode_32k's context, cut to DECODE_32K_BATCH
+    seq = LM_SHAPES["decode_32k"]["seq_len"]
+    b = DECODE_32K_BATCH
+    nb = seq // LM_BLOCK
+    shape = (b * nb, LM_BLOCK, cfg.n_kv_heads, dh)
+    kp = torch.randn(shape, generator=gen, device=device).to(cfg.dtype)
+    vp = torch.randn(shape, generator=gen, device=device).to(cfg.dtype)
+    tables = torch.randperm(b * nb, generator=gen, device=device).to(torch.int32).reshape(b, nb)
+    q = torch.randn((b, h, dh), generator=gen, device=device).to(cfg.dtype)
+    full = torch.full((b,), seq, dtype=torch.int32, device=device)
+    log("decode-32k", batch=b, context=seq, pool_blocks=b * nb,
+        kv_gb=round(2 * kp.numel() * kp.element_size() / 1e9, 3))
+    records.append(record("paged_decode_attention[decode_32k]", q, kp, vp, tables, full))
+    # mixed lengths with 0, a partial block and a full table; past the
+    # length the table holds -1, as the allocator leaves it
+    mixed = torch.randint(0, seq + 1, (b,), generator=gen, device=device).to(torch.int32)
+    mixed[:4] = torch.tensor([0, 1, LM_BLOCK + 3, seq], device=device)
+    cols = torch.arange(nb, device=device)[None] * LM_BLOCK
+    tab = torch.where(cols < mixed[:, None], tables, -1).to(torch.int32)
+    got = paged_attention.paged_decode_attention(q, kp, vp, tab, mixed)
+    want = plain_f32(q, kp, vp)(tab, mixed)
+    name = "paged_decode_attention[decode_32k, mixed lengths]"
+    atol = limits(name, want)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    check(torch.allclose(got.float(), want.float(), rtol=ATTN_RTOL, atol=atol)
+          and bool((got[0] == 0).all()), f"decode_32k mixed lengths: error {err}")
+    log("agree", name=name, max_abs_err=err, lengths=mixed[:6].tolist())
+    log("lm", seconds=round(time.perf_counter() - t_phase, 1))
+    return records
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: the port's sources (src/repro_torch) are not "
@@ -876,6 +1315,7 @@ def main() -> int:
     records = kernel_records(indexes, queries, vmax, counts)
     phase_paths_agree(indexes, queries, vmax)
     phase_profile(indexes, queries)
+    records += phase_union(indexes, queries, truth, vmax)
 
     # the mutation lane, on the float32 and int8 indexes
     del indexes["bfloat16"]
@@ -897,6 +1337,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     records += phase_pq("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    records += phase_lm("cuda")
     log("done", seconds=round(time.perf_counter() - t_start, 1),
         peak_allocated_gb=round(torch.cuda.max_memory_allocated() / 2**30, 3))
     print(json.dumps({"kernels": records}), flush=True)

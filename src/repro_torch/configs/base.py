@@ -1,0 +1,57 @@
+"""Architecture registry of the port: ``get_arch("llama3-8b")`` resolves a
+dashed public id to an ``ArchSpec`` bundling the full-size config, the
+reduced smoke config and the per-arch input-shape set.
+
+A copy of the reference's ``repro.configs.base`` (same names, same
+``LM_SHAPES``) that registers only the configs the port has ported: the
+dense decoder llama3-8b.  The other archs of the reference (the MoE LMs,
+qwen, recsys, GNN) come with ROADMAP queue 1 item 11.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+LM_SHAPES = {
+    "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
+    "decode_32k": dict(kind="decode", seq_len=32768, global_batch=128),
+}
+
+
+@dataclasses.dataclass
+class ArchSpec:
+    arch_id: str
+    family: str  # "lm" | "gnn" | "recsys"
+    config: Any  # full-size config
+    smoke_config: Any  # reduced config (CPU tests)
+    shapes: dict
+    source: str = ""  # public citation
+    notes: str = ""
+
+
+_REGISTRY: dict[str, ArchSpec] = {}
+
+
+def register(spec: ArchSpec) -> ArchSpec:
+    _REGISTRY[spec.arch_id] = spec
+    return spec
+
+
+def get_arch(arch_id: str) -> ArchSpec:
+    _ensure_loaded()
+    if arch_id not in _REGISTRY:
+        raise KeyError(f"unknown arch {arch_id!r}; have {sorted(_REGISTRY)}")
+    return _REGISTRY[arch_id]
+
+
+def list_archs() -> list[str]:
+    _ensure_loaded()
+    return sorted(_REGISTRY)
+
+
+def _ensure_loaded():
+    if _REGISTRY:
+        return
+    from repro_torch.configs import llama3_8b  # noqa: F401

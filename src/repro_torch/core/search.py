@@ -1,5 +1,6 @@
 """IVF search over the block pool: the ``union_fused`` path, and the
-``block_table`` and ``chain_walk`` comparison paths.
+``union``, ``union_pallas``, ``block_table`` and ``chain_walk`` comparison
+paths.
 
 ``union_fused`` runs in five steps:
 
@@ -30,9 +31,11 @@ comparison the kernels are held to.
 ``chain_walk`` follows the ``next_block`` links one hop at a time; both
 probe densely (``coarse_probe``) and score flat payloads in PyTorch and PQ
 payloads through the ``score_fn`` hook (``core.pq.pq_score_fn``, whose
-``use_kernel=True`` sums through the ``pq_adc`` kernel).  The reference's
-``union`` and ``union_pallas`` are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+``use_kernel=True`` sums through the ``pq_adc`` kernel).  ``union`` and
+``union_pallas`` take ``union_fused``'s candidate list but score it whole,
+the full [C, Q, T] tensor (``ivf_block_scan``: its plain version on
+``union``, the kernel by device on ``union_pallas``), then mask and select
+k over C*T rows; they serve flat float32/bfloat16 payloads only.
 """
 
 from __future__ import annotations
@@ -47,8 +50,6 @@ from repro_torch.core.block_pool import NULL, IVFState, PoolConfig
 from repro_torch.kernels import ivf_scan, ops, ref
 
 INF = float("inf")
-
-_LATER_PATHS = "ROADMAP queue 1, item 2 (the comparison search paths)"
 
 # score_fn hooks have signature (state, queries, payload, probe_idx) ->
 # [Q, C, T] scores; centroids and any other index-dependent data come from
@@ -226,6 +227,66 @@ def _union_candidates(
     )
 
 
+def search_union(
+    cfg: PoolConfig,
+    state: IVFState,
+    queries: torch.Tensor,
+    *,
+    nprobe: int,
+    k: int,
+    score_fn: Optional[Callable] = None,  # unused (flat payload only)
+    scan_impl: str = "plain",  # "plain" (union) | "kernel" (by device)
+    chain_budget: Optional[int] = None,
+    pq=None,  # unused (flat payload only)
+    rerank: bool = False,
+):
+    """Score every row of the candidate blocks for every query, mask
+    non-members, empty slots and tombstones to inf, and select the k
+    smallest by (distance, candidate order): ties go to the lower block and
+    offset, as ``jax.lax.top_k`` over the reference's ascending list.
+    Returns (dists [Q, k], ids [Q, k]), ids -1 where the distance is inf."""
+    if cfg.payload != "flat" or cfg.has_scales:
+        raise NotImplementedError(
+            "union/union_pallas score raw f32/bf16 vectors; PQ and int8 "
+            "payloads use the fused union paths (or block_table/chain_walk "
+            "for PQ)"
+        )
+    if rerank:
+        raise NotImplementedError(
+            "rerank is a fused-path epilogue; use union_fused[_scan]"
+        )
+    if scan_impl not in ("kernel", "plain"):
+        raise ValueError(f"unknown scan_impl {scan_impl!r}")
+    queries = queries.to(state.device, torch.float32).contiguous()
+    q = queries.shape[0]
+    p, t = state.pool_ids.shape
+    uc = _union_candidates(cfg, state, queries, nprobe, chain_budget, scan_impl)
+    scan = ops.ivf_block_scan if scan_impl == "kernel" else ref.ivf_block_scan_ref
+    scores = scan(queries, state.pool_payload, uc.flat_blocks)  # [C, Q, T]
+    blocks = uc.flat_blocks.long()  # live block ids, no NULL
+    ids = state.pool_ids[blocks]  # [C, T]
+    # tombstoned rows keep a stale id until compaction
+    slot_ok = (ids != NULL) & (state.pool_live[blocks] != 0)  # [C, T]
+    member = (uc.probe_idx[:, :, None] == uc.owners[None, None, :]).any(1)
+    ok = member[:, :, None] & slot_ok[None]  # [Q, C, T]
+    flat_d = torch.where(ok, scores.transpose(0, 1), INF).reshape(q, -1)
+    flat_i = ids.reshape(1, -1).expand(q, -1)
+    # the reference scores a static min(Q*NP*mc, P) candidates, NULL ones
+    # masked to inf after the live ones: pad the (inf, NULL) tail as far
+    # as k needs it, and refuse a k above that width as its top_k does
+    mc = min(chain_budget or cfg.max_chain, cfg.max_chain)
+    width = min(q * nprobe * mc, p) * t
+    if k > width:
+        raise ValueError(f"k {k} exceeds the {width} candidate rows of a query")
+    short = k - flat_d.shape[1]
+    if short > 0:
+        flat_d = torch.nn.functional.pad(flat_d, (0, short), value=INF)
+        flat_i = torch.nn.functional.pad(flat_i, (0, short), value=NULL)
+    d, sel = _smallest(flat_d, k)
+    out_ids = torch.gather(flat_i, 1, sel.long())
+    return d, torch.where(torch.isinf(d), NULL, out_ids)
+
+
 def default_kprime(k: int) -> int:
     """Accumulator width: smallest 128-multiple >= k (the reference's)."""
     return max(128, -(-k // 128) * 128)
@@ -343,13 +404,12 @@ def search_union_fused(
     return d, out_ids
 
 
-# The reference's path names.  ``None`` marks a path a later slice ports;
-# resolving it raises instead of routing the search elsewhere.
+# The reference's path names.
 SEARCH_IMPLS = {
     "block_table": search_block_table,
     "chain_walk": search_chain_walk,
-    "union": None,
-    "union_pallas": None,
+    "union": search_union,
+    "union_pallas": partial(search_union, scan_impl="kernel"),
     "union_fused": search_union_fused,
     "union_fused_scan": partial(search_union_fused, scan_impl="plain"),
 }
@@ -368,9 +428,9 @@ INT8_SEARCH_PATHS = FUSED_SEARCH_PATHS
 def resolve_search_impl(
     cfg: PoolConfig, path: str, rerank: bool = False
 ) -> Callable:
-    """Look up a scan path, rejecting typos, payload mismatches and
-    unported paths loudly (a silent fallback would serve the wrong path).
-    The payload rules are the reference's, checked first."""
+    """Look up a scan path, rejecting typos and payload mismatches loudly
+    (a silent fallback would serve the wrong path), by the reference's
+    rules in the reference's order."""
     if path not in SEARCH_IMPLS:
         raise ValueError(
             f"unknown search_path {path!r}; expected one of "
@@ -390,11 +450,6 @@ def resolve_search_impl(
         raise NotImplementedError(
             f"rerank is a fused-path epilogue; search_path {path!r} does "
             f"not support it (use one of {sorted(FUSED_SEARCH_PATHS)})"
-        )
-    if SEARCH_IMPLS[path] is None:
-        raise NotImplementedError(
-            f"search_path {path!r} is not ported yet: {_LATER_PATHS}; use "
-            f"one of {sorted(p for p, f in SEARCH_IMPLS.items() if f)}"
         )
     return SEARCH_IMPLS[path]
 

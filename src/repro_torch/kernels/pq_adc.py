@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ivf_scan  # the ctypes launcher and checks
+from repro_torch.kernels import launch
 
 KSUB = 256
 _TILE = 2048  # code rows per block (csrc/pq_adc.cu kTile)
@@ -33,18 +33,18 @@ def pq_adc(
     the order j = 0..M-1."""
     r, m, _ = lut.shape
     n = codes.shape[1]
-    ivf_scan._check("lut", lut, (torch.float32,), (r, m, KSUB))
-    ivf_scan._check("codes", codes, (torch.uint8,), (r, n, m))
-    if m * KSUB * 4 > ivf_scan.SMEM_LIMIT:
+    launch.check("lut", lut, (torch.float32,), (r, m, KSUB))
+    launch.check("codes", codes, (torch.uint8,), (r, n, m))
+    if m * KSUB * 4 > launch.SMEM_LIMIT:
         raise ValueError(
-            f"pq_adc: an [{m}, 256] table exceeds {ivf_scan.SMEM_LIMIT} bytes"
+            f"pq_adc: an [{m}, 256] table exceeds {launch.SMEM_LIMIT} bytes"
         )
     if -(-n // _TILE) > 65535:
         raise ValueError(f"pq_adc: {n} codes per row exceed the grid")
     out = torch.empty((r, n), dtype=torch.float32, device=lut.device)
     if r == 0 or n == 0:
         return out
-    ivf_scan._run("pq_adc", "pq_adc_f32", lut.device, lut.data_ptr(), codes.data_ptr(),
-                  r, n, m, out.data_ptr())
+    launch.run("pq_adc", "pq_adc_f32", lut.device, lut.data_ptr(), codes.data_ptr(),
+               r, n, m, out.data_ptr())
     LAUNCHES["pq_adc"] += 1
     return out

@@ -223,6 +223,39 @@ def ivf_pq_block_topk_ref(
     return srt_d[:, :kprime], srt_i[:, :kprime]
 
 
+def paged_decode_attention_ref(
+    q: torch.Tensor,  # [B, H, dh]
+    k_pool: torch.Tensor,  # [P, T, KVH, dh]
+    v_pool: torch.Tensor,  # [P, T, KVH, dh]
+    block_tables: torch.Tensor,  # [B, NB] i32, -1 past the end
+    lengths: torch.Tensor,  # [B] i32 positions resident in the cache
+    scale: float | None = None,
+) -> torch.Tensor:  # [B, H, dh]
+    """Gather every table entry's block (ids clamped into the pool, as the
+    reference's gather clamps them), mask positions at or past the length,
+    softmax in float32, and weight V; a sequence of length 0 gets zeros.
+    As the reference's oracle, the two products are taken in the inputs'
+    dtype (bf16 rounds the logits and the weights)."""
+    b, h, dh = q.shape
+    p, t, kvh, _ = k_pool.shape
+    nb = block_tables.shape[1]
+    g = h // kvh  # query heads per KV head (GQA group)
+    if scale is None:
+        scale = dh**-0.5
+    safe = torch.clamp(block_tables.long(), 0, p - 1)
+    k = k_pool[safe].reshape(b, nb * t, kvh, dh)
+    v = v_pool[safe].reshape(b, nb * t, kvh, dh)
+    qg = q.reshape(b, kvh, g, dh)
+    logits = torch.einsum("bkgd,bskd->bkgs", qg, k).to(torch.float32) * scale
+    pos = torch.arange(nb * t, device=q.device)[None, None, None, :]
+    mask = pos < lengths.to(q.device)[:, None, None, None]
+    logits = torch.where(mask, logits, -INF)
+    w = torch.softmax(logits, dim=-1)
+    w = torch.where(torch.isnan(w), 0.0, w)  # fully masked rows (length 0)
+    out = torch.einsum("bkgs,bskd->bkgd", w.to(v.dtype), v)
+    return out.reshape(b, h, dh)
+
+
 def topk_mismatches(d_a, i_a, d_b, i_b, *, rtol: float, atol) -> list[str]:
     """Where two top-k results ([Q, K] ascending distances and ids, on the
     CPU) disagree beyond floating-point noise.  Distances must agree

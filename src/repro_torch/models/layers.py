@@ -1,0 +1,165 @@
+"""Transformer building blocks: RMSNorm, RoPE, GQA projections and decode
+attention, SwiGLU (the reference's ``repro.models.layers``).
+
+Parameters are plain dicts of tensors under the reference's names and
+layouts (``wq`` is [d_model, H*dh], activations [B, S, H, dh]), so the
+parity tests hand both packages the same arrays.  The reference's ``shard``
+callbacks are dropped: the port runs on one card.  Compute dtype is the
+params' dtype (bf16 in the production configs); norms, RoPE and softmax
+work in float32.  Full-sequence attention (``_sdpa_chunked``,
+``attention``) comes with the training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+# ----------------------------------------------------------------- norms --
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * scale.to(torch.float32)).to(x.dtype)
+
+
+# ------------------------------------------------------------------ rope --
+
+
+def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32, device=device) / d_head
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x [..., S, H, dh]; positions [..., S] (broadcastable)."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)  # [dh/2]
+    ang = positions[..., None].to(torch.float32) * freqs  # [..., S, dh/2]
+    cos = torch.cos(ang)[..., None, :]  # [..., S, 1, dh/2]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------- attention --
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+
+
+def _normal(gen: torch.Generator, shape, std: float, dtype, device) -> torch.Tensor:
+    """N(0, std^2) drawn in float32 from ``gen``, then cast, as the
+    reference draws ``normal * s`` and casts."""
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (x * std).to(dtype)
+
+
+def init_attn(gen: torch.Generator, cfg: AttnConfig, dtype=torch.bfloat16,
+              device=None) -> dict:
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    s = d**-0.5
+    p = {
+        "wq": _normal(gen, (d, h * dh), s, dtype, device),
+        "wk": _normal(gen, (d, kv * dh), s, dtype, device),
+        "wv": _normal(gen, (d, kv * dh), s, dtype, device),
+        "wo": _normal(gen, (h * dh, d), (h * dh) ** -0.5, dtype, device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((h * dh,), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((kv * dh,), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((kv * dh,), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_scale"] = torch.ones((dh,), dtype=dtype, device=device)
+        p["k_scale"] = torch.ones((dh,), dtype=dtype, device=device)
+    return p
+
+
+def _qkv(p: dict, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor):
+    """x [B, S, D] -> q [B, S, H, dh], k and v [B, S, KV, dh], RoPE'd at
+    ``positions`` [B, S] (qk-norm and biases as configured)."""
+    b, s, _ = x.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, h, dh)
+    k = k.reshape(b, s, kv, dh)
+    v = v.reshape(b, s, kv, dh)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_scale"])
+        k = rmsnorm(k, p["k_scale"])
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attention_decode(
+    p: dict,
+    cfg: AttnConfig,
+    x: torch.Tensor,  # [B, 1, D] new token embeddings
+    k_cache: torch.Tensor,  # [B, S, KV, dh]
+    v_cache: torch.Tensor,
+    cache_len: int,  # tokens already cached (one length for the batch)
+):
+    """Single-token decode against a contiguous KV cache.  Returns
+    (out [B, 1, D], k_cache, v_cache).  The new K/V are written into the
+    caches in place at ``cache_len`` (the reference returns updated
+    copies).  Logits and weights are summed in float32; the weights are
+    rounded to the cache's dtype before the second product, as the
+    reference does."""
+    b = x.shape[0]
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    idx = int(cache_len)
+    pos = torch.full((b, 1), idx, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _qkv(p, cfg, x, pos)  # [B, 1, ...]
+    k_cache[:, idx] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[:, idx] = v_new[:, 0].to(v_cache.dtype)
+    s = k_cache.shape[1]
+    g = h // kv
+    qg = q.reshape(b, kv, g, dh)
+    logits = torch.einsum(
+        "bkgd,bskd->bkgs", qg.to(torch.float32), k_cache.to(torch.float32)
+    ) * (dh**-0.5)
+    mask = torch.arange(s, device=x.device)[None, None, None, :] <= idx
+    logits = torch.where(mask, logits, -1e30)
+    w = torch.softmax(logits, dim=-1)
+    o = torch.einsum(
+        "bkgs,bskd->bkgd", w.to(v_cache.dtype).to(torch.float32),
+        v_cache.to(torch.float32),
+    ).to(x.dtype)
+    out = o.reshape(b, 1, h * dh) @ p["wo"]
+    return out, k_cache, v_cache
+
+
+# ---------------------------------------------------------------- swiglu --
+
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
+             dtype=torch.bfloat16, device=None) -> dict:
+    return {
+        "w_gate": _normal(gen, (d_model, d_ff), d_model**-0.5, dtype, device),
+        "w_up": _normal(gen, (d_model, d_ff), d_model**-0.5, dtype, device),
+        "w_down": _normal(gen, (d_ff, d_model), d_ff**-0.5, dtype, device),
+    }
+
+
+def mlp_swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
+    gate = x @ p["w_gate"]
+    up = x @ p["w_up"]
+    return (torch.nn.functional.silu(gate) * up) @ p["w_down"]

@@ -15,7 +15,7 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.ivf_scan import coarse_topk_scan, ivf_block_topk_scan
-from repro_torch.kernels import ivf_scan, ops, ref
+from repro_torch.kernels import ivf_scan, launch, ops, ref
 from test_torch_kernels_cuda import _coarse_inputs, _pool_inputs, _torch_pool
 
 RTOL = ATOL = 1e-5
@@ -141,7 +141,7 @@ def test_split_centroids_plans_any_number_of_lists(q, n, d, nprobe):
     assert s * nprobe <= 16384
     assert cb % tc == 0 and cb & (cb - 1) == 0 and tc <= cb <= max(tc, chunk)
     seg = 1 << (nprobe + cb - 1).bit_length()
-    assert 8 * 8 * seg + 4 * (8 * d + tc * (d + 1) + tc) <= ivf_scan.SMEM_LIMIT
+    assert 8 * 8 * seg + 4 * (8 * d + tc * (d + 1) + tc) <= launch.SMEM_LIMIT
     with pytest.raises(ValueError, match="nprobe"):
         ivf_scan.split_centroids(q, n, 1 << 14, nprobe, n_sm=132)
 

@@ -352,3 +352,145 @@ def test_pq_adc_kernel_matches_plain(cuda, r, n, m, ties):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert ops.launch_counts()["pq_adc"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("q,p,t,d,c", [
+    (13, 12, 16, 16, None),  # ragged tiles, hole candidates (-1)
+    (64, 48, 1024, 128, 40),  # SIFT1M's union widths
+    (70, 9, 100, 40, 9),  # two query tiles, T and D off the tile sizes
+])
+def test_ivf_block_scan_kernel_matches_plain(cuda, dtype, q, p, t, d, c):
+    rng = np.random.default_rng(q + t)
+    if c is None:
+        queries, pool, bids, *_ = _pool_inputs(dtype, seed=7)
+    else:
+        queries = rng.normal(size=(q, d)).astype(np.float32)
+        pool = rng.normal(size=(p, t, d)).astype(np.float32)
+        bids = rng.permutation(p)[:c].astype(np.int32)
+    args = (_t(queries).to(cuda), _torch_pool(pool, dtype).to(cuda),
+            _t(bids).to(cuda))
+    name = f"ivf_block_scan[{dtype}]"
+    before = ops.launch_counts()[name]
+    got = ivf_scan.ivf_block_scan(*args)
+    want = ref.ivf_block_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[name] == before + 1
+    assert got.shape == want.shape == (len(bids), queries.shape[0], pool.shape[1])
+    # float32 sums in another order than the plain version's matmul
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+def _paged_inputs(b, h, kvh, dh, t, nb, seed, lengths=None):
+    """The reference's kernel-test layout: each sequence owns nb blocks of
+    a shuffled pool, -1 table entries past its end; random lengths with one
+    empty and one full sequence unless ``lengths`` is given."""
+    rng = np.random.default_rng(seed)
+    p = nb * b + 2
+    q = rng.normal(size=(b, h, dh)).astype(np.float32)
+    kp = rng.normal(size=(p, t, kvh, dh)).astype(np.float32)
+    vp = rng.normal(size=(p, t, kvh, dh)).astype(np.float32)
+    perm = rng.permutation(p)[: b * nb].reshape(b, nb).astype(np.int32)
+    if lengths is None:
+        lengths = rng.integers(0, nb * t + 1, size=(b,)).astype(np.int32)
+        lengths[0] = 0
+        if b > 1:
+            lengths[1] = nb * t
+    lengths = np.asarray(lengths, np.int32)
+    tables = np.where(np.arange(nb)[None, :] * t < np.maximum(lengths, 1)[:, None],
+                      perm, -1).astype(np.int32)
+    return q, kp, vp, tables, lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kvh,dh,t,nb", [
+    (2, 8, 2, 64, 16, 4),  # GQA
+    (1, 4, 4, 128, 32, 2),  # MHA (G=1)
+    (3, 8, 1, 64, 8, 5),  # MQA (G=8)
+    (5, 6, 2, 48, 16, 3),  # G=3, dh off the warp width
+    (16, 32, 8, 128, 16, 36),  # llama3-8b serving: 576 positions
+])
+def test_paged_decode_attention_kernel_matches_plain(cuda, dtype, b, h, kvh, dh, t, nb):
+    from repro_torch.kernels import paged_attention
+
+    q, kp, vp, tables, lengths = _paged_inputs(b, h, kvh, dh, t, nb, seed=b * 10 + h)
+    td = getattr(torch, dtype)
+    args = [_t(a).to(cuda, td) for a in (q, kp, vp)] + [_t(tables).to(cuda),
+                                                        _t(lengths).to(cuda)]
+    before = ops.launch_counts()["paged_decode_attention"]
+    got = paged_attention.paged_decode_attention(*args)
+    want = ref.paged_decode_attention_ref(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_decode_attention"] == before + 1
+    assert got.dtype == td and got.shape == (b, h, dh)
+    assert (got[0] == 0).all()  # length 0 writes zeros
+    # float32: sums in another order; bf16: the plain version rounds the
+    # logits and weights to bf16 (the reference's oracle), the kernel not
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == "bfloat16":
+        # the plain version in float32 on the same bf16 values, rounded to
+        # bf16 as the kernel rounds its float32 result: one bf16 unit in the
+        # last place at most (2^-7 of the value), 1e-2 of the RMS near 0
+        f32 = ref.paged_decode_attention_ref(*[a.float() for a in args[:3]],
+                                             *args[3:]).to(td).float()
+        rms = float(f32.pow(2).mean().sqrt())
+        torch.testing.assert_close(got.float(), f32, rtol=2.0**-7, atol=1e-2 * rms)
+
+
+@pytest.mark.cuda
+def test_paged_decode_step_on_the_card_matches_the_cpu(cuda):
+    """llama3-8b's smoke config through ``paged_decode_step`` on both
+    devices with the same weights and tokens: every layer of every step
+    launches the kernel once, and the logits agree (float32)."""
+    from repro_torch.configs.llama3_8b import SMOKE
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serving.paged_lm import init_paged_kv, paged_decode_step
+
+    params = init_lm(0, SMOKE, device="cpu")
+    on_card = _to(params, cuda)
+    kw = dict(n_blocks=12, block_size=4, max_blocks_per_seq=5)
+    s_cpu = init_paged_kv(SMOKE, 3, device="cpu", **kw)
+    s_card = init_paged_kv(SMOKE, 3, device=cuda, **kw)
+    toks = np.random.default_rng(0).integers(0, SMOKE.vocab, (9, 3)).astype(np.int32)
+    before = ops.launch_counts()["paged_decode_attention"]
+    for tok in toks:
+        lg_cpu, s_cpu = paged_decode_step(params, SMOKE, _t(tok), s_cpu)
+        lg_card, s_card = paged_decode_step(on_card, SMOKE, _t(tok).to(cuda), s_card)
+        torch.testing.assert_close(lg_card.cpu(), lg_cpu, rtol=1e-4, atol=1e-4)
+    assert ops.launch_counts()["paged_decode_attention"] == before + 9 * SMOKE.n_layers
+    assert torch.equal(s_card.block_tables.cpu(), s_cpu.block_tables)
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_union_paths_on_the_card_match_the_cpu(cuda, dtype):
+    """``union_pallas`` (the kernels) and ``union`` (plain) on the card,
+    and ``union_pallas`` on the CPU, give the same ids on one index."""
+    from repro_torch.core import block_pool, insert, search
+
+    cfg = block_pool.PoolConfig(n_clusters=8, dim=32, block_size=64,
+                                n_blocks=40, max_chain=8, dtype=dtype)
+    rng = np.random.default_rng(2)
+    modes = rng.normal(size=(8, 32)).astype(np.float32) * 3
+    x = modes[rng.integers(0, 8, 1500)] + rng.normal(size=(1500, 32)).astype(np.float32)
+    queries = _t(modes[rng.integers(0, 8, 20)]
+                 + rng.normal(size=(20, 32)).astype(np.float32))
+    out = {}
+    for dev in (cuda, "cpu"):
+        state = block_pool.init_state(cfg, _t(modes), dev)
+        state = insert.make_insert_fn(cfg)(state, _t(x).to(dev),
+                                           torch.arange(1500, dtype=torch.int32, device=dev))
+        for path in ("union", "union_pallas"):
+            fn = search.make_search_fn(cfg, nprobe=3, k=10, path=path)
+            out[str(dev), path] = [a.cpu() for a in fn(state, queries.to(dev))]
+    kd, ki = out["cuda", "union_pallas"]
+    for key in (("cuda", "union"), ("cpu", "union_pallas")):
+        _agree(kd, ki, *out[key])

@@ -158,11 +158,19 @@ def test_dense_helpers_match_reference(monkeypatch, corpus):
 
 
 def test_unported_paths_and_payloads_raise(monkeypatch, corpus):
+    """Every path of the reference resolves (``union`` and ``union_pallas``
+    are ported); the payloads and options a path does not serve still
+    raise, by the reference's rules."""
     j, t = _build_both(monkeypatch, corpus)
     assert set(tsearch.SEARCH_IMPLS) == set(jsearch.SEARCH_IMPLS)
+    assert all(tsearch.SEARCH_IMPLS.values())
     for path in ("union", "union_pallas"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsearch.make_search_fn(t.pool_cfg, nprobe=4, k=10, path=path)
+        fn = tsearch.make_search_fn(t.pool_cfg, nprobe=4, k=10, path=path)
+        jfn = jsearch.make_search_fn(j.pool_cfg, nprobe=4, k=10, path=path)
+        np.testing.assert_array_equal(fn(t.state, torch.from_numpy(corpus[1]))[1].numpy(),
+                                      np.asarray(jfn(j.state, jnp.asarray(corpus[1]))[1]))
+        with pytest.raises(NotImplementedError, match="rerank"):
+            tsearch.make_search_fn(t.pool_cfg, nprobe=4, k=10, path=path, rerank=True)
     with pytest.raises(ValueError, match="unknown search_path"):
         tsearch.make_search_fn(t.pool_cfg, nprobe=4, k=10, path="union_fuzed")
     # the reference's payload rules: int8 and rerank only on fused paths,
@@ -179,8 +187,11 @@ def test_unported_paths_and_payloads_raise(monkeypatch, corpus):
         with pytest.raises(NotImplementedError, match="int8 payloads"):
             lib.make_search_fn(cfg, nprobe=2, k=1, path="block_table")
         lib.make_search_fn(cfg, nprobe=2, k=1, path="union_fused", rerank=True)
-        with pytest.raises(NotImplementedError, match="PQ payloads"):
-            lib.make_search_fn(pcfg, nprobe=2, k=1, path="union")
+        for path in ("union", "union_pallas"):
+            with pytest.raises(NotImplementedError, match="PQ payloads"):
+                lib.make_search_fn(pcfg, nprobe=2, k=1, path=path)
+            with pytest.raises(NotImplementedError, match="int8 payloads"):
+                lib.make_search_fn(cfg, nprobe=2, k=1, path=path)
         for path in sorted(lib.PQ_SEARCH_PATHS):
             lib.make_search_fn(pcfg, nprobe=2, k=1, path=path)
     for cfg, lib in ((t.pool_cfg, tsearch), (j.pool_cfg, jsearch)):
