@@ -44,7 +44,10 @@ the served shapes and at a 32,768-position context.
 
 Phases print one line each.  The second-to-last line is the per-kernel
 JSON record (launches on the main path, error against the plain version,
-median ms of kernel and plain version, the card's bound); the last line is
+median ms of kernel and plain version, the card's bound); the [serve]
+paged attention and its SDPA yardstick are timed cold, each launch on the
+next layer's pool, and the fused scans' bounds count the occupied, live
+rows of the blocks their queries probe (``scan_counts``); the last line is
 ``{"ok": true, "device": ...}``.  Any failed phase raises and exits
 non-zero; so does a machine without a CUDA card, or a directory without
 the port's sources.
@@ -76,6 +79,9 @@ N_BASE = 1_000_000  # the deployment's corpus
 ONLINE_BATCHES, ONLINE_BATCH = 4, 4096  # online inserts after the build
 N_QUERY_BATCHES, QUERY_BATCH = 8, 64  # served search batches per setting
 TIMING_REPS = 20
+# the card sleeps this long (about 40 ms at 1.98 GHz) while a timed run is
+# queued behind it
+QUEUE_SLEEP_CYCLES = 80_000_000
 N_DELETED = 350_000  # churn: the oldest 35% of the corpus's ids
 UPDATE_BATCHES, UPDATE_BATCH = 4, 4096
 MUTATION_BATCH = 4096
@@ -118,22 +124,43 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def cuda_ms(fn, reps: int = TIMING_REPS) -> float:
-    """Median milliseconds of ``fn()`` on the card, timed with CUDA events
-    around each call after one warm-up call."""
+def _queued(run, reps: int) -> list:
+    """CUDA-event milliseconds of ``reps`` calls of ``run``, queued while
+    the card sleeps (QUEUE_SLEEP_CYCLES), so that the events time the card
+    and not the host's issue rate: a wrapper's checks and allocations can
+    take longer on the host than its kernels on the card."""
     import torch
 
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    for start, end in marks:
         start.record()
-        fn()
+        run()
         end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in marks]
+
+
+def cuda_ms(fn, reps: int = TIMING_REPS) -> float:
+    """Median milliseconds of ``fn()`` on the card after one warm-up call,
+    each call between two CUDA events (``_queued``)."""
+    fn()
+    return statistics.median(_queued(fn, reps))
+
+
+def cuda_ms_cold(fns, reps: int = 5) -> float:
+    """Median milliseconds per launch of a run through ``fns`` in turn,
+    each on its own inputs (one layer's pool each, as the decode step
+    reads them), so no launch finds its inputs in L2: CUDA events around
+    the whole run, divided by its length, after one warm-up run."""
+    def run():
+        for fn in fns:
+            fn()
+
+    run()
+    return statistics.median(t / len(fns) for t in _queued(run, reps))
 
 
 def bound_ms(nbytes: float, flops: float, rate: float = F32_FLOP_PER_S
@@ -254,13 +281,15 @@ def phase_main_path(base_cfg, corpus, online, queries, truth, device):
 
 def kernel_record(name, source, replaces, kern, plain, nbytes, flops,
                   launches, atol, rate=F32_FLOP_PER_S, bit_exact=False,
-                  rtol=1e-5, library=None):
+                  rtol=1e-5, library=None, cold=None):
     """One kernel against its plain version on the same inputs: the top-k
     tie rule within ``rtol`` and ``atol`` (or, with ``bit_exact``, equal
     bits), then CUDA-event times of both, of ``library`` (one PyTorch call
     computing the same function, where there is one) and the card's bound;
     returns the JSON record.  ``kern``/``plain`` return (dists, ids) or one
-    tensor."""
+    tensor.  ``cold`` = (kernel calls, library calls), each on other
+    inputs of the same shapes: ``ms`` and ``library_ms`` are then the time
+    per launch of a run through them (``cuda_ms_cold``)."""
     import torch
     from repro_torch.kernels import ref
 
@@ -286,13 +315,34 @@ def kernel_record(name, source, replaces, kern, plain, nbytes, flops,
     rec = {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
-        "max_abs_err": err, "ms": cuda_ms(kern),
+        "max_abs_err": err,
+        "ms": cuda_ms(kern) if cold is None else cuda_ms_cold(cold[0]),
         "plain_ms": cuda_ms(plain, reps=5), "bound_ms": b_ms,
         "bound_by": b_by,
-        "library_ms": None if library is None else cuda_ms(library),
+        "library_ms": (None if library is None else cuda_ms(library)
+                       if cold is None else cuda_ms_cold(cold[1])),
     }
     log("kernel", **{k: v for k, v in rec.items() if k not in ("source", "replaces")})
     return rec
+
+
+def scan_counts(state, uc) -> dict:
+    """What the fused scans' inputs need them to read, at this batch's
+    candidate list: the member pairs, the candidate blocks some query
+    probes (``blocks_read``), their occupied, live slots (id != -1 and
+    live != 0: ``live_rows``), and those rows over all member pairs
+    (``member_live_rows``, one dot each)."""
+    blocks = uc.flat_blocks.long().clamp(min=0)
+    member = (uc.probe_idx.long()[:, :, None] == uc.owners.long()[None, None, :]).any(1)
+    read = member.any(0)  # [C] probed by some query of the batch
+    occ = ((state.pool_ids[blocks] != -1) & (state.pool_live[blocks] != 0)).sum(1)
+    t = state.pool_ids.shape[1]
+    return {
+        "member_pairs": int(member.sum()), "blocks_read": int(read.sum()),
+        "live_rows": int(occ[read].sum()),
+        "member_live_rows": int((member.long() * occ[None]).sum()),
+        "occupied_fraction": round(float(occ[read].sum()) / max(1, int(read.sum()) * t), 4),
+    }
 
 
 def kernel_records(indexes, queries, vmax, counts):
@@ -339,10 +389,15 @@ def kernel_records(indexes, queries, vmax, counts):
         c = uc.flat_blocks.numel()
         p, t, _ = state.pool_payload.shape
         esize = state.pool_payload.element_size()
-        member_pairs = int((uc.probe_idx.long()[:, :, None]
-                            == uc.owners.long()[None, None, :]).any(1).sum())
-        log("candidates", dtype=dtype, C=c, member_pairs=member_pairs,
-            queries=q.shape[0], nprobe=nprobe, T=t, kprime=kp)
+        sc = scan_counts(state, uc)
+        log("candidates", dtype=dtype, C=c, queries=q.shape[0], nprobe=nprobe,
+            T=t, kprime=kp, **sc)
+        # the ids and live bytes of the blocks some query probes, the
+        # candidate list (ids, owners), the probes and the output
+        common = (sc["blocks_read"] * t * (4 + 1) + 8 * c
+                  + 4 * uc.probe_idx.numel() + 8 * q.shape[0] * kp)
+        # a dot per member pair's live row, a norm per live row read
+        ops = 2 * d * (sc["member_live_rows"] + sc["live_rows"])
         if dtype == "int8":
             qres = q[:, None, :] - state.centroids[uc.probe_idx.long()]
             q_codes, q_meta = ivf_scan.quantize_queries(qres)
@@ -355,13 +410,10 @@ def kernel_records(indexes, queries, vmax, counts):
                 "src/repro/kernels/ivf_scan.py:577",
                 lambda: ivf_scan.ivf_block_topk_int8(*args, kprime=kp),
                 lambda: ref.ivf_block_topk_int8_ref(*args, kprime=kp),
-                # codes, scales, ids and live bits of every candidate block,
-                # the candidate list, query codes + meta, probes, the output
-                c * t * (d + 4 + 4 + 1) + 8 * c + q_codes.numel()
-                + 4 * q_meta.numel() + 4 * uc.probe_idx.numel()
-                + 8 * q.shape[0] * kp,
-                2 * member_pairs * t * d + 2 * c * t * d,
-                rate=INT8_OP_PER_S,
+                # codes and scales of the live rows read, query codes + meta
+                sc["live_rows"] * (d + 4) + common + q_codes.numel()
+                + 4 * q_meta.numel(),
+                ops, rate=INT8_OP_PER_S,
             ))
             _, loc = ivf_scan.ivf_block_topk_int8(*args, kprime=kp)
         else:
@@ -373,9 +425,9 @@ def kernel_records(indexes, queries, vmax, counts):
                 "src/repro/kernels/ivf_scan.py:313",
                 lambda: ivf_scan.ivf_block_topk(*args, kprime=kp),
                 lambda: ref.ivf_block_topk_ref(*args, kprime=kp),
-                c * t * (d * esize + 5) + 8 * c + 4 * q.numel()
-                + 4 * uc.probe_idx.numel() + 8 * q.shape[0] * kp,
-                2 * member_pairs * t * d + 2 * c * t * d,
+                # the payload of the live rows read, the queries
+                sc["live_rows"] * d * esize + common + 4 * q.numel(),
+                ops,
                 # a bf16 block meets the query rounded to bf16
                 rate=BF16_FLOP_PER_S if dtype == "bfloat16" else F32_FLOP_PER_S,
             ))
@@ -910,13 +962,10 @@ def phase_pq(device, n_rows: int = N_PQ_ROWS, scale: float = 1.0):
     lut = pqmod.probe_residual_luts(index.pq, st.centroids, q, uc.probe_idx).contiguous()
     c = uc.flat_blocks.numel()
     t = st.pool_ids.shape[1]
-    member = (uc.probe_idx.long()[:, :, None] == uc.owners.long()[None, None, :]).any(1)
-    live_rows = st.pool_live[uc.flat_blocks.long()].sum(1)  # [C]
-    member_rows = int((member.long() * live_rows[None]).sum())
+    sc = scan_counts(st, uc)
     kp = S.default_kprime(cfg.k)
-    log("candidates", dtype="pq", C=c, member_pairs=int(member.sum()),
-        member_live_rows=member_rows, queries=q.shape[0], nprobe=cfg.nprobe,
-        T=t, kprime=kp, live_fraction=round(float(live_rows.sum()) / (c * t), 4))
+    log("candidates", dtype="pq", C=c, queries=q.shape[0], nprobe=cfg.nprobe,
+        T=t, kprime=kp, **sc)
     args = (lut, st.pool_payload, uc.flat_blocks, uc.owners, st.pool_ids,
             st.pool_live, uc.probe_idx)
     records.append(kernel_record(
@@ -924,11 +973,12 @@ def phase_pq(device, n_rows: int = N_PQ_ROWS, scale: float = 1.0):
         "src/repro/kernels/ivf_scan.py:892",
         lambda: ivf_scan.ivf_pq_block_topk(*args, kprime=kp),
         lambda: ref.ivf_pq_block_topk_ref(*args, kprime=kp),
-        # codes, ids and live bits of every candidate block, the candidate
-        # list, the tables, the probes and the output
-        c * t * (cfg.pq_m + 4 + 1) + 8 * c + 4 * lut.numel()
-        + 4 * uc.probe_idx.numel() + 8 * q.shape[0] * kp,
-        cfg.pq_m * member_rows, counts["ivf_pq_block_topk"], atol, bit_exact=True,
+        # codes of the live rows read, ids and live bytes of the blocks
+        # some query probes, the candidate list, tables, probes, output
+        sc["live_rows"] * cfg.pq_m + sc["blocks_read"] * t * (4 + 1) + 8 * c
+        + 4 * lut.numel() + 4 * uc.probe_idx.numel() + 8 * q.shape[0] * kp,
+        cfg.pq_m * sc["member_live_rows"], counts["ivf_pq_block_topk"], atol,
+        bit_exact=True,
     ))
     # pq_adc as block_table calls it: every probed chain's code rows
     probe_d, _ = S.coarse_probe(st, q, cfg.nprobe)
@@ -1171,7 +1221,9 @@ def lm_kernel_records(cfg, params, state, counts, device, t_phase) -> list:
             atol=ATTN_ATOL_RMS * rms)
         return ATTN_ATOL_RMS * rms
 
-    def record(name, q, kp, vp, tables, lengths):
+    def record(name, q, kp, vp, tables, lengths, layers=None):
+        """``layers``: every layer's (K, V) pools; the kernel and SDPA are
+        then timed cold, one launch a layer in turn (``cuda_ms_cold``)."""
         b, h, dh = q.shape
         s_max = tables.shape[1] * kp.shape[1]
         args = (q, kp, vp, tables, lengths)
@@ -1186,11 +1238,26 @@ def lm_kernel_records(cfg, params, state, counts, device, t_phase) -> list:
         # the library yardstick: one SDPA call (enable_gqa) over K/V that
         # were gathered to [B, KVH, S, dh] beforehand, the gather excluded
         safe = tables.clamp(min=0).long()
-        kg = kp[safe].reshape(b, s_max, kp.shape[2], dh).transpose(1, 2).contiguous()
-        vg = vp[safe].reshape(b, s_max, kp.shape[2], dh).transpose(1, 2).contiguous()
+
+        def gathered(pool):
+            return pool[safe].reshape(b, s_max, pool.shape[2], dh).transpose(1, 2).contiguous()
+
+        def sdpa_on(kg, vg):
+            return lambda: torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], kg, vg, enable_gqa=True)[:, :, 0]
+
+        kg, vg = gathered(kp), gathered(vp)
         check(bool((lengths == s_max).all()), f"{name}: SDPA needs full lengths")
-        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-            q[:, :, None], kg, vg, enable_gqa=True)[:, :, 0]
+        sdpa = sdpa_on(kg, vg)
+        cold = None
+        if layers is not None:
+            cold = (
+                [lambda k=k, v=v: paged_attention.paged_decode_attention(
+                    q, k, v, tables, lengths) for k, v in layers],
+                [sdpa_on(gathered(k), gathered(v)) for k, v in layers],
+            )
+            log("attn-cold", name=name, layers=len(layers),
+                kv_mb_per_launch=round(nbytes / 1e6, 2), l2_mb=50)
         lib_err = float((sdpa().float() - want.float()).abs().max())
         log("agree", name=f"{name} library (SDPA)", max_abs_err=lib_err)
         torch.testing.assert_close(sdpa().float(), want.float(),
@@ -1204,17 +1271,23 @@ def lm_kernel_records(cfg, params, state, counts, device, t_phase) -> list:
             nbytes, 4 * n_pos * h * dh,  # both products, every head
             counts["paged_decode_attention"], atol, rtol=ATTN_RTOL,
             rate=BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S,
-            library=sdpa,
+            library=sdpa, cold=cold,
         )
-        del kg, vg, want, plain
+        del kg, vg, want, plain, cold
         return rec
 
     gen = torch.Generator(device=device).manual_seed(2)
     b, h, dh = LM_BATCH, cfg.n_heads, cfg.d_head
     q = torch.randn((b, h, dh), generator=gen, device=device).to(cfg.dtype)
     last = cfg.n_layers - 1
+    # timed cold: each launch reads the next layer's pool, as a step does
+    # (one layer's K and V, 38.8 MB, would sit in the 50 MB L2 if one pool
+    # were relaunched)
+    layers = [(state.k_pool[i], state.v_pool[i]) for i in range(cfg.n_layers)]
     records = [record("paged_decode_attention[serve]", q, state.k_pool[last],
-                      state.v_pool[last], state.block_tables, state.seq_lens)]
+                      state.v_pool[last], state.block_tables, state.seq_lens,
+                      layers=layers)]
+    del layers
     del params, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -1229,8 +1302,11 @@ def lm_kernel_records(cfg, params, state, counts, device, t_phase) -> list:
     tables = torch.randperm(b * nb, generator=gen, device=device).to(torch.int32).reshape(b, nb)
     q = torch.randn((b, h, dh), generator=gen, device=device).to(cfg.dtype)
     full = torch.full((b,), seq, dtype=torch.int32, device=device)
+    # a plain streaming read of both pools (a sum each): what reading these
+    # bytes in address order costs on this card, beside the bound
     log("decode-32k", batch=b, context=seq, pool_blocks=b * nb,
-        kv_gb=round(2 * kp.numel() * kp.element_size() / 1e9, 3))
+        kv_gb=round(2 * kp.numel() * kp.element_size() / 1e9, 3),
+        stream_read_ms=cuda_ms(lambda: (kp.sum(), vp.sum()), reps=5))
     records.append(record("paged_decode_attention[decode_32k]", q, kp, vp, tables, full))
     # mixed lengths with 0, a partial block and a full table; past the
     # length the table holds -1, as the allocator leaves it

@@ -8,8 +8,8 @@ Same arguments, shapes, dtypes and return order as the JAX package's
 * ``ivf_block_scan`` — scores only: the full [C, Q, T] squared-L2 tensor
   of the candidate blocks, for the ``union_pallas`` path
   (``csrc/ivf_block_scan.cu``);
-* ``ivf_block_topk`` — fused block scan + streaming top-K' over float32 or
-  bfloat16 blocks (``csrc/ivf_block_topk.cu``);
+* ``ivf_block_topk`` — fused block scan + streaming top-K' over the
+  occupied rows of float32 or bfloat16 blocks (``csrc/ivf_block_topk.cu``);
 * ``ivf_block_topk_int8`` — the same over int8 residual codes, scored by
   exact integer dots against per-probe query codes
   (``csrc/ivf_block_topk_int8.cu``);
@@ -152,7 +152,7 @@ def ivf_block_scan(
 
 
 def split_candidates(c: int, q: int, kprime: int, n_sm: int) -> tuple[int, int]:
-    """(S, chunk): how pass 1 of ``ivf_block_topk`` cuts C candidates into
+    """(S, chunk): how pass 1 of the int8 and PQ scans cuts C candidates into
     S chunks: about four blocks per SM over the Q x S grid, while pass 2's
     S*K' keys fit in shared memory as a power of two."""
     keys_max = _next_pow2(launch.SMEM_LIMIT // 8 + 1) // 2  # largest power of two
@@ -160,6 +160,33 @@ def split_candidates(c: int, q: int, kprime: int, n_sm: int) -> tuple[int, int]:
     s = max(1, min(c, -(-4 * n_sm // max(q, 1)), s_max))
     chunk = -(-c // s)
     return -(-c // chunk), chunk
+
+
+# csrc/ivf_block_topk.cu: bytes of a staged tile of rows, tiles in flight
+# (a ring of 2-4), the slots a list of occupied rows holds
+TOPK_TILE_BYTES, TOPK_STAGES, TOPK_LIST = 16384, 2, 4096
+
+
+def split_members(q: int, c: int, t: int, d: int, esize: int, kprime: int,
+                  n_sm: int) -> dict[str, int]:
+    """How pass 1 of ``ivf_block_topk`` splits each query's member blocks:
+    tiles of ``rows`` rows (about TOPK_TILE_BYTES), ``ns`` of them in
+    flight, lists of ``list`` >= T occupied slots, ``seg`` keys for the
+    top-K' and a candidate area of at least two tiles, the ``smem`` bytes
+    a block uses, and ``s`` blocks a query: as many as the SMs hold at
+    once (up to four each, as shared memory allows), so the grid runs in
+    one wave, while pass 2's S sorted runs of K' keys fit in shared
+    memory."""
+    rows = 1 << max(0, min(8, (TOPK_TILE_BYTES // max(1, d * esize)).bit_length() - 1))
+    lst = max(TOPK_LIST, t)
+    seg = _next_pow2(2 * kprime + 2 * rows)
+    smem = (4 * ((d + 3) & ~3) + 8 * seg + TOPK_STAGES * rows * d * esize
+            + 4 * (lst + lst // t))
+    per_sm = max(1, min(4, launch.SM_SHARED // (smem + 1024)))
+    s_max = max(1, launch.SMEM_LIMIT // (8 * kprime) - 1)
+    s = max(1, min(c, per_sm * n_sm // max(q, 1), s_max))
+    return {"s": s, "rows": rows, "ns": TOPK_STAGES, "list": lst, "seg": seg,
+            "smem": smem}
 
 
 def ivf_block_topk(
@@ -189,27 +216,34 @@ def ivf_block_topk(
     launch.check("probe_idx", probe_idx, (torch.int32,), (q, npr))
     if kprime <= 0:
         raise ValueError(f"kprime must be positive, got {kprime}")
-    if _next_pow2(kprime + t) * 8 + (d + npr) * 4 > launch.SMEM_LIMIT:
-        raise ValueError(
-            f"ivf_block_topk sorts K'+T = {kprime + t} keys in shared memory; "
-            f"that exceeds {launch.SMEM_LIMIT} bytes"
-        )
     dev = queries.device
+    plan = split_members(q, c, t, d, pool.element_size(), kprime,
+                         launch.sm_count(dev))
+    if plan["smem"] > launch.SMEM_LIMIT or npr * 4 > launch.SMEM_LIMIT:
+        raise ValueError(
+            f"ivf_block_topk: K' = {kprime}, T = {t}, dim {d} and nprobe {npr} "
+            f"need more than {launch.SMEM_LIMIT} bytes of shared memory"
+        )
     if c == 0 or q == 0:  # no candidate: nothing to launch
         return (
             torch.full((q, kprime), float("inf"), device=dev),
             torch.full((q, kprime), -1, dtype=torch.int32, device=dev),
         )
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    s, chunk = split_candidates(c, q, kprime, n_sm)
-    partial = torch.empty((q, s, kprime), dtype=torch.int64, device=dev)
+    if q > 2**31 - 1 or plan["s"] > 65535:
+        raise ValueError(f"ivf_block_topk: grid ({q}, {plan['s']}) too large")
+    vec = (d * pool.element_size()) % 16 == 0 and pool.data_ptr() % 16 == 0
+    members = torch.empty((q * c + q,), dtype=torch.int32, device=dev)
+    counts = members[q * c :]  # [Q] members of each query
+    partial = torch.empty((q, plan["s"], kprime), dtype=torch.int64, device=dev)
     out_d = torch.empty((q, kprime), dtype=torch.float32, device=dev)
     out_i = torch.empty((q, kprime), dtype=torch.int32, device=dev)
     launch.run("ivf_block_topk", f"ivf_block_topk_{_SUFFIX[pool.dtype]}", dev,
                queries.data_ptr(), pool.data_ptr(), t, d, block_ids.data_ptr(),
-               block_owners.data_ptr(), c, chunk, s, pool_ids.data_ptr(),
+               block_owners.data_ptr(), c, plan["s"], pool_ids.data_ptr(),
                pool_live.data_ptr(), probe_idx.data_ptr(), q, npr, kprime,
-               partial.data_ptr(), out_d.data_ptr(), out_i.data_ptr())
+               plan["rows"], plan["list"], plan["seg"], plan["ns"], int(vec),
+               members.data_ptr(), counts.data_ptr(), partial.data_ptr(),
+               out_d.data_ptr(), out_i.data_ptr())
     LAUNCHES[f"ivf_block_topk[{_DTYPE_NAME[pool.dtype]}]"] += 1
     return out_d, out_i
 

@@ -8,9 +8,11 @@ through the block tables ``[B, NB]`` (-1 past the end), positions at or
 past ``lengths[b]`` masked; the result ``[B, H, dh]`` is in q's dtype.  It
 serves ``serving/paged_lm.py::paged_decode_step`` once per layer.
 
-The wrapper takes CUDA tensors only, checks them, allocates the output,
-launches on the current stream and raises if the launch returns a CUDA
-error; every launch adds one to ``LAUNCHES["paged_decode_attention"]``.
+The wrapper takes CUDA tensors only, checks them, plans the split of each
+sequence's blocks (``plan_splits``), allocates the output and the float32
+partials with ``torch.empty``, launches pass 1 and its merge on the
+current stream and raises if either returns a CUDA error; every call adds
+one to ``LAUNCHES["paged_decode_attention"]``.
 ``kernels/ops.py`` picks between it and its plain version
 (``ref.paged_decode_attention_ref``) by the tensors' device.
 """
@@ -21,13 +23,76 @@ import torch
 
 from repro_torch.kernels import launch
 
-MAX_BLOCK = 32  # positions per pool block: one per lane of a warp
+MAX_BLOCK = 32  # positions per pool block: a tile holds whole blocks
 MAX_GROUP = 8  # query heads per KV head held in registers
 MAX_HEAD_DIM = 256
+# csrc/paged_decode_attention.cu: threads a block and positions a tile
+# (float32), warps (KV heads) a block at most and positions a warp step
+# (bfloat16, tensor cores)
+THREADS, TILE, MMA_WARPS, STEP = 128, 32, 4, 16
+MAX_SPLIT_TILES = 32  # at most 1024 positions per split
+RING_BYTES = 48 * 1024  # float32 staging ring: 2-4 tiles
+MMA_STAGES = 2  # bfloat16: steps in the block's ring
 
 LAUNCHES: dict[str, int] = {"paged_decode_attention": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def plan_splits(b: int, kvh: int, g: int, nb: int, t: int, dh: int,
+                esize: int, n_sm: int) -> dict[str, int]:
+    """How pass 1 cuts each sequence's NB table entries: ``bps`` blocks per
+    split (whole tiles of 32 // t blocks), ``s`` splits: the shortest
+    splits whose grid still runs in one wave of the blocks the SMs hold at
+    once, or, where no split fits one wave, the longest (MAX_SPLIT_TILES
+    tiles), which the SMs then take in turn; ``ns`` stages in flight, the
+    ``smem`` bytes a block uses, the grid's ``ctas``, the blocks the SMs
+    hold at once (``resident``) and the ``scratch`` floats of the partials
+    [b, kvh, s, g, dh + 2].  bfloat16 runs the tensor-core
+    kernel: a block of ``hc`` warps, one per KV head of a group, over a
+    ring of 16-position steps of the group's rows; float32 the other: a
+    block per (sequence, KV head) with a ring of tiles.  Pass 2 keeps g x s
+    split weights in shared memory."""
+    tb = max(1, TILE // t)
+    n_tiles = -(-nb // tb)
+    if esize == 2:
+        hc = min(kvh, MMA_WARPS)
+        ns = MMA_STAGES
+
+        def ring(h):  # ns steps of K and V: 16 positions x (h heads, padded)
+            return ns * 2 * STEP * (h * dh + 8) * 2
+
+        fixed, units = ring(hc), b * -(-kvh // hc)
+    else:
+        nv = dh * esize // 16
+        stage = 2 * (TILE // t) * t * nv * 16
+        ns = max(2, min(4, RING_BYTES // stage))
+        mg = _pow2(g)
+        fixed = (max(ns * stage, (THREADS // nv) * g * dh * 4)
+                 + 4 * (mg * TILE + 3 * mg))
+        units = b * kvh
+    per_sm = max(1, min(4, launch.SM_SHARED
+                        // (fixed + 4 * MAX_SPLIT_TILES * tb + 1024)))
+    s_wave = per_sm * n_sm // units  # splits a sequence in one wave
+    tiles = MAX_SPLIT_TILES
+    if s_wave >= 1:
+        tiles = max(1, min(MAX_SPLIT_TILES, -(-n_tiles // s_wave)))
+    s = -(-n_tiles // tiles)
+    bps = tiles * tb
+    if esize == 2:  # as the kernel's launch: fewer heads if the ring overflows
+        while hc > 1 and ring(hc) + 4 * bps > launch.SMEM_LIMIT:
+            hc -= 1
+        fixed, units = ring(hc), b * -(-kvh // hc)
+    plan = {"bps": bps, "s": s, "ns": ns, "smem": fixed + 4 * bps,
+            "ctas": units * s, "resident": per_sm * n_sm,
+            "scratch": b * kvh * s * g * (dh + 2)}
+    if esize == 2:
+        plan["hc"] = hc
+    return plan
 
 
 def paged_decode_attention(
@@ -55,22 +120,34 @@ def paged_decode_attention(
             f"paged_decode_attention: {h} heads over {kvh} KV heads; groups "
             f"of up to {MAX_GROUP} query heads are supported"
         )
-    if not 0 < t <= MAX_BLOCK or dh > MAX_HEAD_DIM or p == 0:
+    esize = q.element_size()
+    if (not 0 < t <= MAX_BLOCK or dh > MAX_HEAD_DIM or p == 0 or nb == 0
+            or dh % (16 if esize == 2 else 4)):
         raise ValueError(
             f"paged_decode_attention: block size {t} (1..{MAX_BLOCK}), head "
-            f"dim {dh} (<= {MAX_HEAD_DIM}) and {p} pool blocks (> 0) unsupported"
+            f"dim {dh} (<= {MAX_HEAD_DIM}, a multiple of 16 in bfloat16, of 4 "
+            f"in float32), {p} pool blocks and {nb} table entries (> 0) "
+            "unsupported"
         )
-    if b > 2**31 - 1 or kvh > 65535:
-        raise ValueError(f"paged_decode_attention: grid ({b}, {kvh}) too large")
+    if any(x.data_ptr() % 16 for x in (q, k_pool, v_pool)):
+        raise ValueError("paged_decode_attention: q and the pools are read "
+                         "in 16-byte vectors and must be 16-byte aligned")
+    plan = plan_splits(b, kvh, h // kvh, nb, t, dh, esize, launch.sm_count(q.device))
+    if (b * kvh > 2**31 - 1 or kvh > 65535 or plan["s"] > 65535
+            or 4 * plan["s"] * (h // kvh) > launch.SMEM_LIMIT):
+        raise ValueError(
+            f"paged_decode_attention: grid ({b}, {kvh}, {plan['s']}) too large")
     scale = float(dh) ** -0.5 if scale is None else float(scale)
     out = torch.empty_like(q)
     if b == 0:
         return out
+    partial = torch.empty(plan["scratch"], dtype=torch.float32, device=q.device)
     launch.run(
         "paged_decode_attention", f"paged_decode_attention_{_SUFFIX[q.dtype]}",
         q.device, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), b, p, t, kvh, dh,
-        h // kvh, nb, scale, out.data_ptr(),
+        h // kvh, nb, plan["bps"], plan["s"], plan["ns"], scale,
+        partial.data_ptr(), out.data_ptr(),
     )
     LAUNCHES["paged_decode_attention"] += 1
     return out

@@ -256,6 +256,52 @@ def paged_decode_attention_ref(
     return out.reshape(b, h, dh)
 
 
+def paged_decode_attention_split_ref(
+    q: torch.Tensor,  # [B, H, dh]
+    k_pool: torch.Tensor,  # [P, T, KVH, dh]
+    v_pool: torch.Tensor,  # [P, T, KVH, dh]
+    block_tables: torch.Tensor,  # [B, NB] i32, -1 past the end
+    lengths: torch.Tensor,  # [B] i32 positions resident in the cache
+    scale: float | None = None,
+    *,
+    bps: int,  # pool blocks per split
+) -> torch.Tensor:  # [B, H, dh] in q's dtype
+    """The CUDA kernel's split-K scheme in plain PyTorch, float32 inside:
+    each run of ``bps`` table entries gives an unnormalised partial (max m,
+    sum l, numerator acc) over its resident positions; the partials of the
+    splits holding positions are rescaled by exp(m_i - m), summed, and
+    divided by the summed l floored at 1e-30 (length 0 gives zeros)."""
+    b, h, dh = q.shape
+    p, t, kvh, _ = k_pool.shape
+    nb = block_tables.shape[1]
+    g = h // kvh
+    if scale is None:
+        scale = dh**-0.5
+    s = -(-nb // bps)
+    tab = torch.nn.functional.pad(block_tables.long(), (0, s * bps - nb), value=-1)
+    safe = torch.clamp(tab, 0, p - 1)
+    n = bps * t  # positions per split
+    k = k_pool[safe].float().reshape(b, s, n, kvh, dh)
+    v = v_pool[safe].float().reshape(b, s, n, kvh, dh)
+    qg = q.float().reshape(b, kvh, g, dh)
+    logits = torch.einsum("bkgd,bsnkd->bskgn", qg, k) * scale
+    pos = torch.arange(s * n, device=q.device).reshape(s, n)
+    length = torch.clamp(lengths.to(q.device).long(), 0, nb * t)
+    valid = (pos[None] < length[:, None, None])[:, :, None, None, :]
+    m = torch.where(valid, logits, -INF).amax(-1)  # [B, S, KVH, G]
+    used = valid.any(-1)  # splits holding positions
+    m = torch.where(used, m, -INF)
+    w = torch.where(valid, torch.exp(logits - torch.where(used, m, 0.0)[..., None]), 0.0)
+    l_s = w.sum(-1)
+    acc = torch.einsum("bskgn,bsnkd->bskgd", w, v)
+    m_all = m.amax(1, keepdim=True)  # [B, 1, KVH, G]
+    f = torch.where(used, torch.exp(m - torch.where(used, m_all, 0.0)), 0.0)
+    num = (acc * f[..., None]).sum(1)
+    den = (l_s * f).sum(1)
+    out = num / torch.clamp(den, min=1e-30)[..., None]
+    return out.reshape(b, h, dh).to(q.dtype)
+
+
 def topk_mismatches(d_a, i_a, d_b, i_b, *, rtol: float, atol) -> list[str]:
     """Where two top-k results ([Q, K] ascending distances and ids, on the
     CPU) disagree beyond floating-point noise.  Distances must agree

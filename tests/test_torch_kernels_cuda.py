@@ -176,7 +176,7 @@ def test_ivf_block_topk_kernel_matches_plain(cuda, dtype, kprime):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ivf_block_topk_kernel_many_candidates(cuda, dtype):
-    """Enough candidates that pass 1 splits them into several chunks."""
+    """Enough member blocks that pass 1 splits each query's members."""
     rng = np.random.default_rng(5)
     q, p, t, d, n_clusters, np_ = 9, 300, 64, 32, 50, 6
     queries = rng.normal(size=(q, d)).astype(np.float32)
@@ -190,11 +190,126 @@ def test_ivf_block_topk_kernel_many_candidates(cuda, dtype):
                .astype(np.int32))
     args = [a.to(cuda) for a in (_t(queries), pool, bids, owners, pids, live, probe)]
     n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert ivf_scan.split_candidates(p, q, 128, n_sm)[0] > 1
+    assert ivf_scan.split_members(q, p, t, d, pool.element_size(), 128, n_sm)["s"] > 1
     kd, ki = ivf_scan.ivf_block_topk(*args, kprime=128)
     pd, pi = ref.ivf_block_topk_ref(*args, kprime=128)
     torch.cuda.synchronize()
     _agree(kd, ki, pd, pi)
+
+
+def _int_rows(rng, n, d):
+    """Small integer vectors: every dot and norm is exact in float32 and
+    bf16 in any order, so equal rows tie exactly in kernel and plain."""
+    return rng.integers(-3, 4, size=(n, d)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ivf_block_topk_kernel_ties_across_splits(cuda, dtype):
+    """Every member block holds the same rows, so each distance occurs once
+    per block, and the ties at the K'-th place span blocks that different
+    blocks of pass 1 score: the kernel must keep the lowest locations, as
+    the plain version's stable sort in block order does."""
+    rng = np.random.default_rng(11)
+    q, p, t, d, n_clusters = 2, 24, 64, 32, 6
+    base = _int_rows(rng, t, d)
+    pool = np.broadcast_to(base, (p, t, d)).copy()
+    queries = _int_rows(rng, q, d)
+    pids = np.arange(p * t, dtype=np.int32).reshape(p, t)
+    pids[:, 40:] = -1  # 40 occupied slots a block
+    live = (pids != -1).astype(np.uint8)
+    owners = (np.arange(p) % n_clusters).astype(np.int32)
+    probe = np.array([[0, 1, 2], [3, 4, 5]], np.int32)
+    args = [_t(queries), _torch_pool(pool, dtype), _t(np.arange(p, dtype=np.int32)),
+            _t(owners), _t(pids), _t(live), _t(probe)]
+    args = [a.to(cuda) for a in args]
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ivf_scan.split_members(q, p, t, d, args[1].element_size(), 100, n_sm)["s"] > 1
+    for kprime in (100, 37):  # 12 member blocks x 40 rows, ties at the K'-th
+        kd, ki = ivf_scan.ivf_block_topk(*args, kprime=kprime)
+        pd, pi = ref.ivf_block_topk_ref(*args, kprime=kprime)
+        torch.cuda.synchronize()
+        _agree(kd, ki, pd, pi)
+        assert torch.equal(ki, pi) and torch.equal(kd, pd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ivf_block_topk_kernel_occupancy_cases(cuda, dtype):
+    """Member blocks with no occupied slot, with every slot occupied and
+    live, with tombstones; K' above a query's occupied rows; a query whose
+    probes own no candidate (all (inf, -1))."""
+    rng = np.random.default_rng(12)
+    q, p, t, d = 5, 8, 64, 32
+    queries = rng.normal(size=(q, d)).astype(np.float32)
+    pool = rng.normal(size=(p, t, d)).astype(np.float32)
+    pids = np.arange(p * t, dtype=np.int32).reshape(p, t)
+    pids[0] = -1  # no occupied slot
+    pids[2, 20:] = -1
+    pids[3, 5:] = -1
+    live = (pids != -1).astype(np.uint8)  # block 1: every slot live
+    live[2, ::3] = 0  # tombstones keep their stale id
+    live[4] = 0  # every slot tombstoned
+    owners = np.array([0, 0, 1, 1, 2, 2, 3, 3], np.int32)
+    probe = np.array([[0, 1], [1, 2], [0, 3], [2, 3], [7, 8]], np.int32)
+    args = [_t(queries), _torch_pool(pool, dtype), _t(np.arange(p, dtype=np.int32)),
+            _t(owners), _t(pids), _t(live), _t(probe)]
+    args = [a.to(cuda) for a in args]
+    for kprime in (300, 16):
+        kd, ki = ivf_scan.ivf_block_topk(*args, kprime=kprime)
+        pd, pi = ref.ivf_block_topk_ref(*args, kprime=kprime)
+        torch.cuda.synchronize()
+        _agree(kd, ki, pd, pi)
+        assert torch.isinf(kd[4]).all() and (ki[4] == -1).all()
+        got = ki.cpu().numpy()
+        assert (live.reshape(-1)[got[got >= 0]] == 1).all()
+    assert (ki[0] >= 0).all()  # query 0 has more occupied rows than 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ivf_block_topk_kernel_sift_blocks(cuda, dtype):
+    """SIFT1M's block shape (T 1024, D 128, a quarter occupied) with more
+    member blocks per split than one list of occupied slots holds, so
+    pass 1 compacts several groups and its candidate area fills."""
+    rng = np.random.default_rng(13)
+    q, p, t, d, n_clusters, np_ = 200, 40, 1024, 128, 40, 20
+    queries = rng.normal(size=(q, d)).astype(np.float32)
+    pool = _t(rng.normal(size=(p, t, d)).astype(np.float32)).to(getattr(torch, dtype))
+    pids = np.arange(p * t, dtype=np.int32).reshape(p, t)
+    fill = rng.integers(200, 320, p)
+    for b in range(p):
+        pids[b, fill[b]:] = -1
+    live = (pids != -1).astype(np.uint8)
+    live[rng.random((p, t)) < 0.05] = 0
+    owners = rng.permutation(n_clusters)[:p].astype(np.int32)
+    probe = np.stack([rng.permutation(n_clusters)[:np_] for _ in range(q)]).astype(np.int32)
+    args = [a.to(cuda) for a in (_t(queries), pool, _t(np.arange(p, dtype=np.int32)),
+                                 _t(owners), _t(pids), _t(live), _t(probe))]
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = ivf_scan.split_members(q, p, t, d, pool.element_size(), 128, n_sm)
+    assert np_ // plan["s"] > plan["list"] // t  # several groups a split
+    kd, ki = ivf_scan.ivf_block_topk(*args, kprime=128)
+    pd, pi = ref.ivf_block_topk_ref(*args, kprime=128)
+    torch.cuda.synchronize()
+    qn = (args[0] ** 2).sum(1).cpu()
+    _agree(kd, ki, pd, pi, atol=1e-5 * (qn + 4 * d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ivf_block_topk_kernel_rows_off_16_bytes(cuda, dtype):
+    """Dim 10: rows of 40 or 20 bytes are staged by plain loads, not by
+    16-byte copies."""
+    queries, pool, bids, owners, pids, live, probe = _pool_inputs(dtype, seed=4, d=10)
+    args = [_t(queries), _torch_pool(pool, dtype), _t(bids), _t(owners),
+            _t(pids), _t(live), _t(probe)]
+    args = [a.to(cuda) for a in args]
+    for kprime in (128, 16):
+        kd, ki = ivf_scan.ivf_block_topk(*args, kprime=kprime)
+        pd, pi = ref.ivf_block_topk_ref(*args, kprime=kprime)
+        torch.cuda.synchronize()
+        _agree(kd, ki, pd, pi)
 
 
 @pytest.mark.cuda
@@ -438,6 +553,71 @@ def test_paged_decode_attention_kernel_matches_plain(cuda, dtype, b, h, kvh, dh,
                                              *args[3:]).to(td).float()
         rms = float(f32.pow(2).mean().sqrt())
         torch.testing.assert_close(got.float(), f32, rtol=2.0**-7, atol=1e-2 * rms)
+
+
+def _paged_check(got, args, dtype):
+    """The kernel against the plain version run in float32 on the same
+    values: float32 within 2e-5 (sums in another order); bf16 within one
+    bf16 unit in the last place (2^-7 of the value), 1e-2 of the RMS near 0."""
+    want = ref.paged_decode_attention_ref(*[a.float() for a in args[:3]], *args[3:])
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        want = want.to(torch.bfloat16).float()
+        rms = float(want.pow(2).mean().sqrt())
+        torch.testing.assert_close(got.float(), want, rtol=2.0**-7, atol=1e-2 * rms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g", [1, 3, 8])
+def test_paged_decode_attention_split_edges(cuda, dtype, g):
+    """Lengths at the planner's split edges: 0 beside full tables, 1, one
+    split exactly, one position past it, two splits, one short of full;
+    -1 table entries past each length."""
+    from repro_torch.kernels import paged_attention
+
+    b, kvh, dh, t, nb = 7, 2, 64, 16, 96
+    td = getattr(torch, dtype)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = paged_attention.plan_splits(b, kvh, g, nb, t, dh, td.itemsize, n_sm)
+    edge = plan["bps"] * t
+    assert plan["s"] > 2
+    lengths = [0, 1, edge, edge + 1, 2 * edge, nb * t - 1, nb * t]
+    q, kp, vp, tables, lengths = _paged_inputs(b, g * kvh, kvh, dh, t, nb,
+                                               seed=g, lengths=lengths)
+    args = [_t(a).to(cuda, td) for a in (q, kp, vp)] + [_t(tables).to(cuda),
+                                                        _t(lengths).to(cuda)]
+    got = paged_attention.paged_decode_attention(*args)
+    split = ref.paged_decode_attention_split_ref(
+        *[a.cpu() for a in args], bps=plan["bps"])
+    torch.cuda.synchronize()
+    assert (got[0] == 0).all()
+    _paged_check(got, args, dtype)
+    tol = 2e-5 if dtype == "float32" else 2.0**-7
+    torch.testing.assert_close(got.float().cpu(), split.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_paged_decode_attention_many_splits(cuda):
+    """2 sequences x 32,768 positions (llama3-8b's heads, bf16): tens of
+    splits per (sequence, head), against the plain version in float32."""
+    from repro_torch.kernels import paged_attention
+
+    b, h, kvh, dh, t, nb = 2, 32, 8, 128, 16, 2048
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = paged_attention.plan_splits(b, kvh, h // kvh, nb, t, dh, 2, n_sm)
+    assert plan["s"] >= 32
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    kp = torch.randn((b * nb, t, kvh, dh), generator=gen, device=cuda).to(torch.bfloat16)
+    vp = torch.randn((b * nb, t, kvh, dh), generator=gen, device=cuda).to(torch.bfloat16)
+    q = torch.randn((b, h, dh), generator=gen, device=cuda).to(torch.bfloat16)
+    tables = torch.randperm(b * nb, generator=gen, device=cuda).to(torch.int32).reshape(b, nb)
+    lengths = torch.tensor([nb * t, nb * t - 5], dtype=torch.int32, device=cuda)
+    args = [q, kp, vp, tables, lengths]
+    got = paged_attention.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    _paged_check(got, args, "bfloat16")
 
 
 @pytest.mark.cuda
