@@ -40,7 +40,8 @@ each: step latency), then 64 greedy tokens queued back to back (step
 throughput), with ``paged_decode_attention`` once per layer and step; it
 holds the logits to
 the contiguous-cache decode on the same tokens and records the kernel at
-the served shapes and at a 32,768-position context.
+the served shapes, at a 32,768-position context, and at pool blocks of 64
+positions and a GQA group of 16 heads.
 
 Phases print one line each.  The second-to-last line is the per-kernel
 JSON record (launches on the main path, error against the plain version,
@@ -456,13 +457,18 @@ def kernel_records(indexes, queries, vmax, counts):
 def paths_agree(index, q, vmax, **tags) -> dict:
     """The kernel path (union_fused) and the plain path (union_fused_scan)
     give matching ids on the same index, under the tie rule, rerank off
-    and on; returns the kernel path's ids by rerank setting."""
+    and on; returns the kernel path's ids by rerank setting.  As in
+    ``[union]`` and ``[pq-paths]``, a query whose probed lists differ
+    between the streaming coarse kernel and the dense probe (a near-tie at
+    the last list, within the tie rule: ``probe_sets_equal``, at most one
+    query in 32) searches other rows and is left out."""
     import torch
     from repro_torch.core.search import make_search_fn
     from repro_torch.kernels import ref
 
     q = torch.as_tensor(q, device=index.device)
     atol = (1e-6 * ((q * q).sum(1) + vmax)).cpu()
+    same = torch.as_tensor(probe_sets_equal(index, [q], atol))
     ids = {}
     for rerank in (False, True):
         out = {}
@@ -472,10 +478,12 @@ def paths_agree(index, q, vmax, **tags) -> dict:
                                 chain_budget=index._chain_budget(), rerank=rerank)
             out[path] = [x.cpu() for x in fn(index.state, q)]
         (kd, ki), (pd, pi) = out["union_fused"], out["union_fused_scan"]
-        faults = ref.topk_mismatches(kd, ki, pd, pi, rtol=1e-5, atol=atol)
+        faults = ref.topk_mismatches(kd[same], ki[same], pd[same], pi[same],
+                                     rtol=1e-5, atol=atol[same])
         check(not faults, f"{tags} rerank={rerank}: paths disagree {faults[:3]}")
-        log("paths", **tags, rerank=rerank, queries=q.shape[0],
-            ids_equal=bool(torch.equal(ki, pi)), agree=True)
+        log("paths", **tags, rerank=rerank, queries=int(same.sum()),
+            left_out=int((~same).sum()),
+            ids_equal=bool(torch.equal(ki[same], pi[same])), agree=True)
         ids[rerank] = ki.numpy()
     return ids
 
@@ -1323,6 +1331,28 @@ def lm_kernel_records(cfg, params, state, counts, device, t_phase) -> list:
     check(torch.allclose(got.float(), want.float(), rtol=ATTN_RTOL, atol=atol)
           and bool((got[0] == 0).all()), f"decode_32k mixed lengths: error {err}")
     log("agree", name=name, max_abs_err=err, lengths=mixed[:6].tolist())
+    del kp, vp, tables, q, tab, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # shapes the reference serves past the kernel's first domain: pool
+    # blocks of 64 positions (llama3-8b's heads), and a GQA group of 16
+    # heads (32 query heads over 2 KV heads, blocks of 16), both at
+    # [serve]'s 16 sequences x 576 positions
+    for name, kvh, t in (("paged_decode_attention[T=64]", cfg.n_kv_heads, 64),
+                         ("paged_decode_attention[G=16]", 2, LM_BLOCK)):
+        b, nb = LM_BATCH, (LM_PROMPT + LM_GEN) // t
+        shape = (b * nb, t, kvh, dh)
+        kp = torch.randn(shape, generator=gen, device=device).to(cfg.dtype)
+        vp = torch.randn(shape, generator=gen, device=device).to(cfg.dtype)
+        tables = torch.randperm(b * nb, generator=gen, device=device).to(
+            torch.int32).reshape(b, nb)
+        q = torch.randn((b, cfg.n_heads, dh), generator=gen, device=device).to(cfg.dtype)
+        full = torch.full((b,), nb * t, dtype=torch.int32, device=device)
+        log("attn-shape", name=name, heads=cfg.n_heads, kv_heads=kvh,
+            group=cfg.n_heads // kvh, block=t, positions=nb * t, batch=b)
+        records.append(record(name, q, kp, vp, tables, full))
+        del kp, vp, tables, q, full
     log("lm", seconds=round(time.perf_counter() - t_phase, 1))
     return records
 

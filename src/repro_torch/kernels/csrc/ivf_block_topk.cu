@@ -17,8 +17,9 @@
 // 3.35 TB/s, against a few hundred MFLOP of dot products.
 //
 // Design, in three launches:
-// * list_members, one block per query: the query's member candidates (owner
-//   in its probe list) compacted in candidate order, by warp ballots.
+// * list_members (topk_common.cuh), one block per query: the query's member
+//   candidates (owner in its probe list) compacted in candidate order, by
+//   warp ballots.
 // * Pass 1, grid (query, split): a query's members are cut evenly across
 //   its S blocks (the TPU kernel walks every candidate and masks the
 //   product afterwards; PR 11's first design here split the candidates, so
@@ -31,7 +32,7 @@
 //   threads score a row against the query in shared memory (three shuffles
 //   per sum).  A key enters a candidate area only below the running K'-th
 //   best (the threshold), and the area is sorted with the top-K' only when
-//   a tile could overflow it, and once at the end (the coarse_topk scheme);
+//   a tile could overflow it, and once at the end (merge_area);
 //   PR 11's design sorted K'+T keys per member block.  The split's sorted
 //   K' best go to a partial buffer [Q, S, K'].
 // * Pass 2 (merge_sorted_partials) ranks the S sorted runs of a query and
@@ -69,55 +70,6 @@ __device__ __forceinline__ float round_query<float>(float q) {
 template <>
 __device__ __forceinline__ float round_query<__nv_bfloat16>(float q) {
   return __bfloat162float(__float2bfloat16(q));
-}
-
-__global__ void __launch_bounds__(kThreads)
-list_members(const int* __restrict__ owners, int C, const int* __restrict__ probe,
-             int NP, int* __restrict__ members, int* __restrict__ counts) {
-  extern __shared__ int probes[];  // [NP]
-  __shared__ int warp_n[kThreads / 32];
-  __shared__ int base_s;
-  const int qi = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int p = threadIdx.x; p < NP; p += blockDim.x)
-    probes[p] = probe[static_cast<size_t>(qi) * NP + p];
-  if (threadIdx.x == 0) base_s = 0;
-  __syncthreads();
-  int* out = members + static_cast<size_t>(qi) * C;
-  for (int g = 0; g < C; g += kThreads) {
-    const int c = g + threadIdx.x;
-    bool m = false;
-    if (c < C) {
-      const int own = owners[c];
-      if (own >= 0)
-        for (int p = 0; p < NP; ++p) m |= probes[p] == own;
-    }
-    const unsigned mask = __ballot_sync(0xffffffffu, m);
-    if (lane == 0) warp_n[warp] = __popc(mask);
-    __syncthreads();
-    int off = base_s;
-    for (int w = 0; w < warp; ++w) off += warp_n[w];
-    if (m) out[off + __popc(mask & ((1u << lane) - 1))] = c;
-    __syncthreads();
-    if (threadIdx.x == 0)
-      for (int w = 0; w < kThreads / 32; ++w) base_s += warp_n[w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) counts[qi] = base_s;
-}
-
-// Sort the top-K' and the candidate area together (seg keys), empty the
-// area, and take the new K'-th best as the threshold.  Called by every
-// thread after a barrier; returns synchronized.
-__device__ __forceinline__ void merge_area(unsigned long long* keys, int seg, int K,
-                                           int* cnt, unsigned long long* thr) {
-  bitonic_sort(keys, seg);
-  for (int i = K + threadIdx.x; i < seg; i += blockDim.x) keys[i] = EMPTY_KEY;
-  if (threadIdx.x == 0) {
-    *thr = keys[K - 1];
-    *cnt = 0;
-  }
-  __syncthreads();
 }
 
 // kVec: rows are a multiple of 16 bytes and the pool 16-byte aligned, so
@@ -202,27 +154,8 @@ block_topk_pass1(const float* __restrict__ queries, const T* __restrict__ pool,
     for (int j = mi + tid; j < mend; j += kThreads) gblk[j - mi] = max(block_ids[mem[j]], 0);
     if (tid == 0) n_list = 0;
     __syncthreads();
-    const int n_slots = (mend - mi) * T_m;
-    for (int x0 = 0; x0 < n_slots; x0 += kLoads * kThreads) {
-      // kLoads slots a thread, their ids and live bytes loaded together
-      int slot[kLoads];
-      bool ok[kLoads];
-#pragma unroll
-      for (int k = 0; k < kLoads; ++k) {
-        const int x = x0 + k * kThreads + tid;
-        const int jj = x / T_m;
-        slot[k] = x < n_slots ? gblk[jj] * T_m + (x - jj * T_m) : 0;
-        ok[k] = x < n_slots && pool_ids[slot[k]] != -1 && pool_live[slot[k]] != 0;
-      }
-#pragma unroll
-      for (int k = 0; k < kLoads; ++k) {
-        const unsigned mask = __ballot_sync(0xffffffffu, ok[k]);
-        int base = 0;
-        if (lane == 0 && mask) base = atomicAdd(&n_list, __popc(mask));
-        base = __shfl_sync(0xffffffffu, base, 0);
-        if (ok[k]) list[base + __popc(mask & ((1u << lane) - 1))] = slot[k];
-      }
-    }
+    list_live_slots<kLoads>(gblk, mend - mi, T_m, pool_ids, pool_live, &n_list,
+                            [&](int at, int slot, int) { list[at] = slot; });
     __syncthreads();
     const int n = n_list;
     const int ntiles = (n + R - 1) / R;
@@ -317,11 +250,8 @@ int launch(const float* queries, const void* pool, int T_m, int D,
            int* counts, unsigned long long* partial, float* out_d, int* out_i,
            void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem0 = static_cast<size_t>(NP) * sizeof(int);
-  cudaError_t err = allow_smem(list_members, smem0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  list_members<<<Q, kThreads, smem0, st>>>(owners, C, probe, NP, members, counts);
-  err = cudaGetLastError();
+  const cudaError_t err =
+      launch_list_members(owners, C, probe, Q, NP, members, nullptr, counts, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rc = vec
       ? launch_pass1<T, true>(queries, pool, T_m, D, block_ids, members, counts,

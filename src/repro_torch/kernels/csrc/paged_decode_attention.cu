@@ -26,7 +26,8 @@
 //   grid fills the SMs several times over at short and long contexts; a
 //   split that starts past the sequence's length returns at once.  A block
 //   of 4 warps holds the group's G query heads in registers and walks its
-//   split in tiles of up to 32 positions (32 / T pool blocks), its table
+//   split in tiles of up to 32 positions (32 / T whole pool blocks, or, for
+//   T > 32, 32 positions of a block that spans several tiles), its table
 //   entries read once into shared memory.  Each tile's
 //   K and V rows (one KV head's dh contiguous values in each slot) are
 //   staged in shared memory by 16-byte cp.async copies into a ring of `ns`
@@ -41,12 +42,21 @@
 //   exp(m_i - m), sums, and divides by the summed l floored at 1e-30.
 // -1 table entries and ids past the pool are clamped into it (the
 // reference's clamped gather); only blocks holding positions are read.
+// A GQA group of G > 8 query heads runs as launches of up to 8 heads
+// (pass 1 and pass 2 each), one after the other over the same scratch:
+// every kernel takes the group's first head g0 and its heads Gc.
 #include "topk_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kTile = 32;  // positions per tile: one per lane in the softmax
+constexpr int kMaxGroup = 8;  // query heads a launch holds in registers
+
+// positions of a float32 tile: whole pool blocks, or 32 of a larger block
+__host__ __device__ __forceinline__ int tile_positions(int T_m) {
+  return T_m <= kTile ? (kTile / T_m) * T_m : kTile;
+}
 constexpr float kNegInf = -1e30f;  // the TPU kernel's mask value
 
 template <typename T>
@@ -75,15 +85,16 @@ __host__ __device__ __forceinline__ int ring_bytes(int ns, int tp, int nv, int G
   return ring > red ? ring : red;
 }
 
-// MG: query heads per KV head kept in registers (G <= MG).  VPT: 16-byte
-// vectors of a K row per thread in the logits (NV <= 32 * VPT).
+// MG: query heads per KV head kept in registers (Gc <= MG): heads g0 ..
+// g0 + Gc - 1 of each group of G.  VPT: 16-byte vectors of a K row per
+// thread in the logits (NV <= 32 * VPT).
 template <typename T, int MG, int VPT>
 __global__ void __launch_bounds__(kThreads)
 paged_attn_split(const T* __restrict__ q, const T* __restrict__ k_pool,
                  const T* __restrict__ v_pool, const int* __restrict__ tables,
                  const int* __restrict__ lengths, int P, int T_m, int KVH,
-                 int dh, int G, int NB, int bps, int ns, float scale,
-                 float* __restrict__ partial) {
+                 int dh, int G, int g0, int Gc, int NB, int bps, int ns,
+                 float scale, float* __restrict__ partial) {
   constexpr int VE = 16 / sizeof(T);  // values per 16-byte vector
   extern __shared__ __align__(16) unsigned char smem[];
   // blockIdx.x = b * KVH + kh: the KV heads of a position range run side by
@@ -93,12 +104,12 @@ paged_attn_split(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int pos0 = s * bps * T_m;
   if (pos0 >= len) return;  // nothing resident here: pass 2 skips the split
   const int n_pos = min(len - pos0, bps * T_m);
-  const int TP = (kTile / T_m) * T_m;  // positions per tile (whole blocks)
+  const int TP = tile_positions(T_m);
   const int ntiles = (n_pos + TP - 1) / TP;
   const int NV = dh * static_cast<int>(sizeof(T)) / 16;  // vectors per row
   const int tile_vecs = TP * NV;
   uint4* ring = reinterpret_cast<uint4*>(smem);  // [ns][K|V][TP][NV]
-  float* logit = reinterpret_cast<float*>(smem + ring_bytes(ns, TP, NV, G, dh));
+  float* logit = reinterpret_cast<float*>(smem + ring_bytes(ns, TP, NV, Gc, dh));
   float* m_s = logit + MG * kTile;  // [MG] running max
   float* l_s = m_s + MG;            // [MG] running sum
   float* alpha_s = l_s + MG;        // [MG] this tile's rescale
@@ -120,9 +131,9 @@ paged_attn_split(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
     for (int k = 0; k < VPT; ++k) {
       const int u = c + C * k;
-      if (g < G && u < NV) {
+      if (g < Gc && u < NV) {
         const uint4 raw = reinterpret_cast<const uint4*>(
-            q + (static_cast<size_t>(b) * H + kh * G + g) * dh)[u];
+            q + (static_cast<size_t>(b) * H + kh * G + g0 + g) * dh)[u];
         widen16<T>(raw, &qr[g][k * VE]);
       } else {
 #pragma unroll
@@ -203,12 +214,12 @@ paged_attn_split(const T* __restrict__ q, const T* __restrict__ k_pool,
       if (c == 0 && r < nvalid) {
 #pragma unroll
         for (int g = 0; g < MG; ++g)
-          if (g < G) logit[g * kTile + r] = part[g] * scale;
+          if (g < Gc) logit[g * kTile + r] = part[g] * scale;
       }
     }
     __syncthreads();
     // online softmax, one warp per head: logits become weights
-    for (int g = warp; g < G; g += kThreads / 32) {
+    for (int g = warp; g < Gc; g += kThreads / 32) {
       const float x = lane < nvalid ? logit[g * kTile + lane] : kNegInf;
       const float m_old = m_s[g];
       const float m_new = fmaxf(m_old, warp_max(x));
@@ -227,7 +238,7 @@ paged_attn_split(const T* __restrict__ q, const T* __restrict__ k_pool,
     if (tp < n_tp) {
 #pragma unroll
       for (int g = 0; g < MG; ++g) {
-        const float a = g < G ? alpha_s[g] : 0.f;
+        const float a = g < Gc ? alpha_s[g] : 0.f;
 #pragma unroll
         for (int e = 0; e < VE; ++e) acc[g][e] *= a;
       }
@@ -236,7 +247,7 @@ paged_attn_split(const T* __restrict__ q, const T* __restrict__ k_pool,
         widen16<T>(vt[t * NV + vec], vv);
 #pragma unroll
         for (int g = 0; g < MG; ++g) {
-          if (g >= G) break;
+          if (g >= Gc) break;
           const float pt = logit[g * kTile + t];
 #pragma unroll
           for (int e = 0; e < VE; ++e) acc[g][e] = fmaf(pt, vv[e], acc[g][e]);
@@ -247,24 +258,24 @@ paged_attn_split(const T* __restrict__ q, const T* __restrict__ k_pool,
   cp_async_wait(0);
   __syncthreads();  // the ring is free: sum the position groups' acc in it
 
-  float* red = reinterpret_cast<float*>(smem);  // [n_tp][G][dh]
+  float* red = reinterpret_cast<float*>(smem);  // [n_tp][Gc][dh]
   if (tp < n_tp) {
 #pragma unroll
     for (int g = 0; g < MG; ++g) {
-      if (g >= G) break;
+      if (g >= Gc) break;
 #pragma unroll
-      for (int e = 0; e < VE; ++e) red[(tp * G + g) * dh + vec * VE + e] = acc[g][e];
+      for (int e = 0; e < VE; ++e) red[(tp * Gc + g) * dh + vec * VE + e] = acc[g][e];
     }
   }
   __syncthreads();
-  float* out = partial + ((static_cast<size_t>(b) * KVH + kh) * S + s) * G * (dh + 2);
-  for (int idx = tid; idx < G * dh; idx += kThreads) {
+  float* out = partial + ((static_cast<size_t>(b) * KVH + kh) * S + s) * Gc * (dh + 2);
+  for (int idx = tid; idx < Gc * dh; idx += kThreads) {
     const int g = idx / dh, d = idx - g * dh;
     float sum = 0.f;
-    for (int w = 0; w < n_tp; ++w) sum += red[(w * G + g) * dh + d];
+    for (int w = 0; w < n_tp; ++w) sum += red[(w * Gc + g) * dh + d];
     out[g * (dh + 2) + d] = sum;
   }
-  if (tid < G) {
+  if (tid < Gc) {
     out[tid * (dh + 2) + dh] = m_s[tid];
     out[tid * (dh + 2) + dh + 1] = l_s[tid];
   }
@@ -285,7 +296,7 @@ paged_attn_split(const T* __restrict__ q, const T* __restrict__ k_pool,
 // Small blocks keep 2-3 of them on an SM, so one block's scoring overlaps
 // another's copies (on the H100 this beat blocks of 8 heads and 3 stages,
 // and a warp or a block per head).  Per step: S^T[16 heads x 16 positions] = q K^T by dh / 16 x 2 mma
-// (q's G <= 8 heads are the rows, zero-padded to 16); the warp's online
+// (q's Gc <= 8 heads are the rows, zero-padded to 16); the warp's online
 // softmax on the fragments (a quad of lanes holds one head, in base 2);
 // P.V by dh / 8 mma with P's fragments reused as the A operand: a bf16
 // high part in the head rows and the bf16 rounding of the rest in the
@@ -294,7 +305,6 @@ paged_attn_split(const T* __restrict__ q, const T* __restrict__ k_pool,
 // does), at no extra mma.  Each warp writes its head's partial, in the
 // float32 kernel's layout, and the same pass 2 merges the splits.
 constexpr int kMmaWarps = 4;  // KV heads a block, at most
-constexpr size_t kSmemLimit = 232448;  // shared memory a block may use
 constexpr int kStep = 16;     // positions a step
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 
@@ -336,8 +346,8 @@ paged_attn_mma(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k_pool,
                const __nv_bfloat16* __restrict__ v_pool,
                const int* __restrict__ tables, const int* __restrict__ lengths,
-               int P, int T_m, int KVH, int dh, int G, int NB, int bps, int ns,
-               float scale, float* __restrict__ partial) {
+               int P, int T_m, int KVH, int dh, int G, int g0, int Gc, int NB,
+               int bps, int ns, float scale, float* __restrict__ partial) {
   extern __shared__ __align__(16) unsigned char smem[];
   // blockIdx.x = b * groups + group of blockDim.x / 32 KV heads
   const int hc = blockDim.x >> 5, groups = (KVH + hc - 1) / hc;
@@ -361,12 +371,13 @@ paged_attn_mma(const __nv_bfloat16* __restrict__ q,
   const int n_blk = (n_pos + T_m - 1) / T_m;
   for (int j = tid; j < n_blk; j += blockDim.x)
     blk_s[j] = min(max(tables[static_cast<size_t>(b) * NB + s * bps + j], 0), P - 1);
-  // q's A fragments: row g < G is head kh*G + g; rows g + 8 are zero
+  // q's A fragments: row g < Gc is head kh*G + g0 + g; rows g + 8 are zero
   uint32_t qa[MAXKC][2];
-  const __nv_bfloat16* qrow = q + (static_cast<size_t>(b) * KVH * G + kh * G + g) * dh;
+  const __nv_bfloat16* qrow =
+      q + (static_cast<size_t>(b) * KVH * G + kh * G + g0 + g) * dh;
 #pragma unroll
   for (int kc = 0; kc < MAXKC; ++kc) {
-    const bool ok = scores && kc < nkc && g < G;
+    const bool ok = scores && kc < nkc && g < Gc;
     qa[kc][0] = ok ? *reinterpret_cast<const uint32_t*>(qrow + kc * 16 + 2 * t4) : 0u;
     qa[kc][1] = ok ? *reinterpret_cast<const uint32_t*>(qrow + kc * 16 + 2 * t4 + 8) : 0u;
   }
@@ -473,7 +484,7 @@ paged_attn_mma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[d][e] *= alpha;
     // P as the A fragment: its bf16 high part in row g, the bf16 rounding
-    // of the rest in row g + 8 (rows the G <= 8 heads leave free), so one
+    // of the rest in row g + 8 (rows the Gc <= 8 heads leave free), so one
     // mma takes both; rows g and g + 8 of acc are summed at the end.
     // {a01, a23, a45, a67}: positions 0-7 of row g, of row g + 8, 8-15 ...
     uint32_t pa[4];
@@ -495,9 +506,9 @@ paged_attn_mma(const __nv_bfloat16* __restrict__ q,
     }
   }
   cp_async_wait(0);
-  // this head's partial: rows g < G of the fragments, max and sum
-  if (scores && g < G) {
-    float* out = partial + (((static_cast<size_t>(b) * KVH + kh) * S + s) * G + g) * (dh + 2);
+  // this head's partial: rows g < Gc of the fragments, max and sum
+  if (scores && g < Gc) {
+    float* out = partial + (((static_cast<size_t>(b) * KVH + kh) * S + s) * Gc + g) * (dh + 2);
 #pragma unroll
     for (int d = 0; d < 2 * MAXKC; ++d) {
       if (d < 2 * nkc) {
@@ -517,18 +528,18 @@ paged_attn_mma(const __nv_bfloat16* __restrict__ q,
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 paged_attn_merge(const float* __restrict__ partial, const int* __restrict__ lengths,
-                 int T_m, int KVH, int dh, int G, int NB, int bps, int S,
-                 T* __restrict__ out) {
-  extern __shared__ float wts[];  // [G][S]: each used split's weight
-  __shared__ float inv_l[8];      // 1 / the summed l of each head (G <= 8)
+                 int T_m, int KVH, int dh, int G, int g0, int Gc, int NB, int bps,
+                 int S, T* __restrict__ out) {
+  extern __shared__ float wts[];          // [Gc][S]: each used split's weight
+  __shared__ float inv_l[kMaxGroup];      // 1 / the summed l of each head
   const int b = blockIdx.x, kh = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int len = min(max(lengths[b], 0), NB * T_m);
   const int n_used = (len + bps * T_m - 1) / (bps * T_m);
-  const int stride = G * (dh + 2);  // one split's partial
+  const int stride = Gc * (dh + 2);  // one split's partial
   const float* base = partial + (static_cast<size_t>(b) * KVH + kh) * S * stride;
   // the weights exp(m_s - m) and the summed l, a warp per head
-  for (int g = warp; g < G; g += blockDim.x / 32) {
+  for (int g = warp; g < Gc; g += blockDim.x / 32) {
     const float* pg = base + g * (dh + 2);
     float mx = kNegInf;
     for (int s = lane; s < n_used; s += 32) {
@@ -547,63 +558,63 @@ paged_attn_merge(const float* __restrict__ partial, const int* __restrict__ leng
     if (lane == 0) inv_l[g] = 1.f / fmaxf(sum, 1e-30f);
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < G * dh; idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < Gc * dh; idx += blockDim.x) {
     const int g = idx / dh, d = idx - g * dh;
     const float* pg = base + g * (dh + 2) + d;
     float num = 0.f;
 #pragma unroll 4
     for (int s = 0; s < n_used; ++s)
       num = fmaf(pg[static_cast<size_t>(s) * stride], wts[g * S + s], num);
-    out[(static_cast<size_t>(b) * KVH * G + kh * G + g) * dh + d] =
+    out[(static_cast<size_t>(b) * KVH * G + kh * G + g0 + g) * dh + d] =
         narrow<T>(n_used ? num * inv_l[g] : 0.f);
   }
 }
 
-// pass 2's launch: shared memory for G x S weights
+// pass 2's launch: shared memory for Gc x S weights
 template <typename T>
 int launch_merge_splits(const float* partial, const int* lengths, int B, int T_m,
-                        int KVH, int dh, int G, int NB, int bps, int S, void* out,
-                        cudaStream_t st) {
-  const size_t smem = static_cast<size_t>(G) * S * sizeof(float);
+                        int KVH, int dh, int G, int g0, int Gc, int NB, int bps,
+                        int S, void* out, cudaStream_t st) {
+  const size_t smem = static_cast<size_t>(Gc) * S * sizeof(float);
   const cudaError_t err = allow_smem(paged_attn_merge<T>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   paged_attn_merge<T><<<dim3(B, KVH), kThreads, smem, st>>>(
-      partial, lengths, T_m, KVH, dh, G, NB, bps, S, static_cast<T*>(out));
+      partial, lengths, T_m, KVH, dh, G, g0, Gc, NB, bps, S, static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int MG, int VPT>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const int* tables, const int* lengths, int B, int P, int T_m,
-           int KVH, int dh, int G, int NB, int bps, int S, int ns, float scale,
-           float* partial, void* out, cudaStream_t st) {
-  const int tp = (kTile / T_m) * T_m;
+           int KVH, int dh, int G, int g0, int Gc, int NB, int bps, int S,
+           int ns, float scale, float* partial, void* out, cudaStream_t st) {
+  const int tp = tile_positions(T_m);
   const int nv = dh * static_cast<int>(sizeof(T)) / 16;
-  const size_t smem = ring_bytes(ns, tp, nv, G, dh) +
+  const size_t smem = ring_bytes(ns, tp, nv, Gc, dh) +
                       (MG * kTile + 3 * MG + bps) * sizeof(float);
   cudaError_t err = allow_smem(paged_attn_split<T, MG, VPT>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   paged_attn_split<T, MG, VPT><<<dim3(B * KVH, S), kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), tables, lengths, P, T_m, KVH, dh, G, NB,
-      bps, ns, scale, partial);
+      static_cast<const T*>(v_pool), tables, lengths, P, T_m, KVH, dh, G, g0,
+      Gc, NB, bps, ns, scale, partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_merge_splits<T>(partial, lengths, B, T_m, KVH, dh, G, NB, bps, S,
-                                out, st);
+  return launch_merge_splits<T>(partial, lengths, B, T_m, KVH, dh, G, g0, Gc, NB,
+                                bps, S, out, st);
 }
 
 template <typename T, int VPT>
 int by_group(const void* q, const void* k, const void* v, const int* tables,
              const int* lengths, int B, int P, int T_m, int KVH, int dh, int G,
-             int NB, int bps, int S, int ns, float scale, float* partial,
-             void* out, cudaStream_t st) {
-#define PAGED_LAUNCH(MG)                                                      \
-  return launch<T, MG, VPT>(q, k, v, tables, lengths, B, P, T_m, KVH, dh, G, \
-                            NB, bps, S, ns, scale, partial, out, st)
-  if (G <= 1) PAGED_LAUNCH(1);
-  if (G <= 2) PAGED_LAUNCH(2);
-  if (G <= 4) PAGED_LAUNCH(4);
+             int g0, int Gc, int NB, int bps, int S, int ns, float scale,
+             float* partial, void* out, cudaStream_t st) {
+#define PAGED_LAUNCH(MG)                                                       \
+  return launch<T, MG, VPT>(q, k, v, tables, lengths, B, P, T_m, KVH, dh, G,  \
+                            g0, Gc, NB, bps, S, ns, scale, partial, out, st)
+  if (Gc <= 1) PAGED_LAUNCH(1);
+  if (Gc <= 2) PAGED_LAUNCH(2);
+  if (Gc <= 4) PAGED_LAUNCH(4);
   PAGED_LAUNCH(8);
 #undef PAGED_LAUNCH
 }
@@ -611,15 +622,15 @@ int by_group(const void* q, const void* k, const void* v, const int* tables,
 template <int MAXKC>
 int launch_mma(const void* q, const void* k_pool, const void* v_pool,
                const int* tables, const int* lengths, int B, int P, int T_m,
-               int KVH, int dh, int G, int NB, int bps, int S, int ns,
-               float scale, float* partial, void* out, cudaStream_t st) {
-  // KV heads a block: up to 8, as many as shared memory holds the rings of
+               int KVH, int dh, int G, int g0, int Gc, int NB, int bps, int S,
+               int ns, float scale, float* partial, void* out, cudaStream_t st) {
+  // KV heads a block: up to 4, as many as shared memory holds the rings of
   // (kernels/paged_attention.py plans the same)
   int hc = KVH < kMmaWarps ? KVH : kMmaWarps;
   auto ring = [&](int h) {
     return static_cast<size_t>(ns) * 2 * kStep * mma_row(h * dh) * 2;
   };
-  while (hc > 1 && ring(hc) + bps * sizeof(int) > kSmemLimit) --hc;
+  while (hc > 1 && ring(hc) + bps * sizeof(int) > static_cast<size_t>(kSmemBytes)) --hc;
   const int groups = (KVH + hc - 1) / hc;
   const size_t smem = ring(hc) + static_cast<size_t>(bps) * sizeof(int);
   cudaError_t err = allow_smem(paged_attn_mma<MAXKC>, smem);
@@ -627,21 +638,22 @@ int launch_mma(const void* q, const void* k_pool, const void* v_pool,
   paged_attn_mma<MAXKC><<<dim3(B * groups, S), hc * 32, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_pool),
       static_cast<const __nv_bfloat16*>(v_pool), tables, lengths, P, T_m, KVH, dh,
-      G, NB, bps, ns, scale, partial);
+      G, g0, Gc, NB, bps, ns, scale, partial);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return launch_merge_splits<__nv_bfloat16>(partial, lengths, B, T_m, KVH, dh, G,
-                                            NB, bps, S, out, st);
+                                            g0, Gc, NB, bps, S, out, st);
 }
 
 }  // namespace
 
 // q [B, KVH*G, dh]; k_pool, v_pool [P, T, KVH, dh]; tables [B, NB] i32;
 // lengths [B] i32 -> out [B, KVH*G, dh], all float32 or all bfloat16;
-// partial [B, KVH, S, G, dh + 2] f32 scratch.  The table is cut into S
-// splits of bps blocks (S * bps >= NB, bps a multiple of 32 / T), each
-// staged through rings of ns (2..4) stages.  B > 0, B * KVH <= 2^31 - 1,
-// KVH <= 65535, S <= 65535, G <= 8, T <= 32, dh <= 256 and a multiple of 4
+// partial [B, KVH, S, min(G, 8), dh + 2] f32 scratch.  The table is cut
+// into S splits of bps blocks (S * bps >= NB; bps a multiple of 32 / T
+// where T <= 32), each staged through rings of ns (2..4) stages.  Heads run
+// in launches of up to 8 a group.  B > 0, B * KVH <= 2^31 - 1,
+// KVH <= 65535, S <= 65535, T >= 1, dh <= 256 and a multiple of 4
 // (float32) or 16 (bfloat16), every pointer 16-byte aligned.
 extern "C" int paged_decode_attention_f32(const void* q, const void* k_pool,
                                           const void* v_pool, const int* tables,
@@ -652,11 +664,16 @@ extern "C" int paged_decode_attention_f32(const void* q, const void* k_pool,
                                           void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partial);
-  if (dh * 4 <= 32 * 16)
-    return by_group<float, 1>(q, k_pool, v_pool, tables, lengths, B, P, T_m, KVH,
-                              dh, G, NB, bps, S, ns, scale, part, out, st);
-  return by_group<float, 2>(q, k_pool, v_pool, tables, lengths, B, P, T_m, KVH,
-                            dh, G, NB, bps, S, ns, scale, part, out, st);
+  for (int g0 = 0; g0 < G; g0 += kMaxGroup) {
+    const int gc = G - g0 < kMaxGroup ? G - g0 : kMaxGroup;
+    const int rc = dh * 4 <= 32 * 16
+        ? by_group<float, 1>(q, k_pool, v_pool, tables, lengths, B, P, T_m, KVH,
+                             dh, G, g0, gc, NB, bps, S, ns, scale, part, out, st)
+        : by_group<float, 2>(q, k_pool, v_pool, tables, lengths, B, P, T_m, KVH,
+                             dh, G, g0, gc, NB, bps, S, ns, scale, part, out, st);
+    if (rc != 0) return rc;
+  }
+  return 0;
 }
 
 extern "C" int paged_decode_attention_bf16(const void* q, const void* k_pool,
@@ -668,12 +685,15 @@ extern "C" int paged_decode_attention_bf16(const void* q, const void* k_pool,
                                            void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partial);
+  for (int g0 = 0; g0 < G; g0 += kMaxGroup) {
+    const int gc = G - g0 < kMaxGroup ? G - g0 : kMaxGroup;
 #define PAGED_MMA(KC)                                                          \
-  return launch_mma<KC>(q, k_pool, v_pool, tables, lengths, B, P, T_m, KVH, dh, \
-                        G, NB, bps, S, ns, scale, part, out, st)
-  if (dh <= 32) PAGED_MMA(2);
-  if (dh <= 64) PAGED_MMA(4);
-  if (dh <= 128) PAGED_MMA(8);
-  PAGED_MMA(16);
+  launch_mma<KC>(q, k_pool, v_pool, tables, lengths, B, P, T_m, KVH, dh, G, g0, \
+                 gc, NB, bps, S, ns, scale, part, out, st)
+    const int rc = dh <= 32 ? PAGED_MMA(2) : dh <= 64 ? PAGED_MMA(4)
+                 : dh <= 128 ? PAGED_MMA(8) : PAGED_MMA(16);
 #undef PAGED_MMA
+    if (rc != 0) return rc;
+  }
+  return 0;
 }

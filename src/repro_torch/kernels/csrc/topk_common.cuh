@@ -14,6 +14,7 @@
 #include <cuda_runtime.h>
 
 constexpr unsigned long long EMPTY_KEY = ~0ull;
+constexpr int kSmemBytes = 232448;  // shared memory a block may use (Hopper)
 
 __device__ __forceinline__ uint32_t ord_f32(float f) {
   const uint32_t u = __float_as_uint(f);
@@ -125,28 +126,98 @@ inline int launch_merge(const unsigned long long* partial, int Q, int S, int K,
 }
 
 // Pass 2 for partials that pass 1 wrote sorted ([Q, S, K], each run of K
-// ascending): one block per query places every key by its rank in the
-// union, its position in its own run plus the number of smaller keys in
-// each other run (a binary search), and writes the keys of rank < K
-// decoded.  Non-empty keys are unique (distance, location) pairs, so the
-// ranks are distinct; output places no key reaches stay EMPTY_KEY.  One
-// pass over S*K keys with one barrier, where merge_partials sorts
-// next_pow2(S*K) keys in log^2 stages.
+// ascending): one block per query.  With m = min(K, ceil(2K / S)), the
+// runs' first m keys are at least K keys, so the K-th smallest of them is a
+// bound: no key above it is among the K best.  The block finds it by ranking those S*m
+// keys among themselves, counts each run's keys at or below it (a binary
+// search), gathers them by a prefix sum into a buffer of nbuf keys, sorts
+// them (bitonic, next_pow2 of their count) and writes the first K decoded.
+// Sorted runs of random chunks leave little more than K keys under the
+// bound, where sorting all S*K keys or ranking each in the other runs
+// costs up to S times more.  Where more keys than nbuf fall under the
+// bound, each is placed by its rank: its position in its run plus the
+// number of smaller keys in each other run.  Non-empty keys are unique
+// (distance, location) pairs, so the ranks are distinct; output places no
+// key reaches stay EMPTY_KEY.
 __global__ void __launch_bounds__(256)
 merge_sorted_partials(const unsigned long long* __restrict__ partial, int S,
-                      int K, float* __restrict__ out_d, int* __restrict__ out_i) {
-  extern __shared__ unsigned long long runs[];  // [S*K] then [K] output
-  unsigned long long* top = runs + static_cast<size_t>(S) * K;
-  const int qi = blockIdx.x;
+                      int K, int nbuf, float* __restrict__ out_d,
+                      int* __restrict__ out_i) {
+  extern __shared__ unsigned long long runs[];  // [S*K], [nbuf] gathered, [K]
+  unsigned long long* buf = runs + static_cast<size_t>(S) * K;
+  unsigned long long* top = buf + nbuf;
+  __shared__ unsigned long long bound_s;
+  __shared__ int warp_sum_s[8];
+  const int qi = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
   const unsigned long long* in = partial + static_cast<size_t>(qi) * S * K;
-  for (int i = threadIdx.x; i < S * K; i += blockDim.x) runs[i] = in[i];
-  for (int i = threadIdx.x; i < K; i += blockDim.x) top[i] = EMPTY_KEY;
+  for (int i = tid; i < S * K; i += blockDim.x) runs[i] = in[i];
+  for (int i = tid; i < K; i += blockDim.x) top[i] = EMPTY_KEY;
+  if (tid == 0) bound_s = EMPTY_KEY;
   __syncthreads();
-  for (int i = threadIdx.x; i < S * K; i += blockDim.x) {
-    const unsigned long long x = runs[i];
+
+  // the bound: the K-th smallest of the runs' first m keys (key t of them
+  // is position t / S of run t % S), about 2K of them; EMPTY_KEY where fewer
+  // than K are keys
+  const int m = min(K, (2 * K + S - 1) / S), T = S * m;
+  for (int t = tid; t < T; t += blockDim.x) {
+    const unsigned long long x = runs[static_cast<size_t>(t % S) * K + t / S];
     if (x == EMPTY_KEY) continue;
-    const int a = i / K;
-    int rank = i - a * K;
+    int rank = 0;
+    for (int r = 0; r < S; ++r)
+      for (int pos = 0; pos < m; ++pos) rank += runs[static_cast<size_t>(r) * K + pos] < x;
+    if (rank == K - 1) bound_s = x;
+  }
+  __syncthreads();
+  const unsigned long long bnd = bound_s;
+
+  // thread t counts the keys at or below the bound in runs [r0, r1)
+  const int r0 = static_cast<int>(static_cast<long long>(S) * tid / blockDim.x);
+  const int r1 = static_cast<int>(static_cast<long long>(S) * (tid + 1) / blockDim.x);
+  int mine = 0;
+  for (int r = r0; r < r1; ++r) {
+    const unsigned long long* run = runs + static_cast<size_t>(r) * K;
+    int lo = 0, hi = K;  // keys of run r at or below the bound
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (run[mid] <= bnd) lo = mid + 1; else hi = mid;
+    }
+    mine += lo;
+  }
+  int incl = mine;  // inclusive prefix sum over the threads
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) warp_sum_s[warp] = incl;
+  __syncthreads();
+  int before = incl - mine, total = 0;
+  for (int w = 0; w < nwarps; ++w) {
+    if (w < warp) before += warp_sum_s[w];
+    total += warp_sum_s[w];
+  }
+
+  if (total <= nbuf) {
+    for (int r = r0; r < r1; ++r) {
+      const unsigned long long* run = runs + static_cast<size_t>(r) * K;
+      for (int j = 0; j < K && run[j] <= bnd; ++j) buf[before++] = run[j];
+    }
+    int n = 1;
+    while (n < total) n <<= 1;
+    for (int i = total + tid; i < n; i += blockDim.x) buf[i] = EMPTY_KEY;
+    __syncthreads();
+    bitonic_sort(buf, n);
+    for (int i = tid; i < K; i += blockDim.x)
+      store_key(i < n ? buf[i] : EMPTY_KEY, &out_d[static_cast<size_t>(qi) * K + i],
+                &out_i[static_cast<size_t>(qi) * K + i]);
+    return;
+  }
+  for (int i = tid; i < S * K; i += blockDim.x) {
+    const int pos = i / S, a = i - pos * S;  // position pos of run a
+    const unsigned long long x = runs[static_cast<size_t>(a) * K + pos];
+    if (x == EMPTY_KEY || x > bnd) continue;
+    int rank = pos;
     for (int r = 0; r < S && rank < K; ++r) {
       if (r == a) continue;
       const unsigned long long* run = runs + static_cast<size_t>(r) * K;
@@ -160,18 +231,141 @@ merge_sorted_partials(const unsigned long long* __restrict__ partial, int S,
     if (rank < K) top[rank] = x;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < K; i += blockDim.x)
+  for (int i = tid; i < K; i += blockDim.x)
     store_key(top[i], &out_d[static_cast<size_t>(qi) * K + i],
               &out_i[static_cast<size_t>(qi) * K + i]);
 }
 
+// the gather buffer: every key's room where shared memory allows, else the
+// largest power of two beside the runs (down to K), up to 8192 keys
+inline int merge_sorted_nbuf(int S, int K) {
+  const long long room = kSmemBytes / 8 - static_cast<long long>(S + 1) * K;
+  int n = 1;
+  while (n < S * K && n < 8192 && 2LL * n <= room) n <<= 1;
+  return n;
+}
+
 inline int launch_merge_sorted(const unsigned long long* partial, int Q, int S,
                                int K, float* out_d, int* out_i, cudaStream_t st) {
-  const size_t smem = (static_cast<size_t>(S) + 1) * K * sizeof(unsigned long long);
+  const int nbuf = merge_sorted_nbuf(S, K);
+  const size_t smem =
+      (static_cast<size_t>(S + 1) * K + nbuf) * sizeof(unsigned long long);
   const cudaError_t err = allow_smem(merge_sorted_partials, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  merge_sorted_partials<<<Q, 256, smem, st>>>(partial, S, K, out_d, out_i);
+  merge_sorted_partials<<<Q, 256, smem, st>>>(partial, S, K, nbuf, out_d, out_i);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the member-split scans (ivf_block_topk.cu, ivf_block_topk_int8.cu) ----
+
+constexpr int kListThreads = 256;  // list_members' block
+
+// One block per query: the query's member candidates (owner in its probe
+// list) compacted in candidate order by warp ballots into members[q][0..n),
+// their count into counts[q], and, where slots is not null, the probe slot
+// p with probe[q][p] == owner of each (probe ids are distinct: one match).
+__global__ void __launch_bounds__(kListThreads)
+list_members(const int* __restrict__ owners, int C, const int* __restrict__ probe,
+             int NP, int* __restrict__ members, int* __restrict__ slots,
+             int* __restrict__ counts) {
+  extern __shared__ int probes[];  // [NP]
+  __shared__ int warp_n[kListThreads / 32];
+  __shared__ int base_s;
+  const int qi = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int p = threadIdx.x; p < NP; p += blockDim.x)
+    probes[p] = probe[static_cast<size_t>(qi) * NP + p];
+  if (threadIdx.x == 0) base_s = 0;
+  __syncthreads();
+  int* out = members + static_cast<size_t>(qi) * C;
+  for (int g = 0; g < C; g += kListThreads) {
+    const int c = g + threadIdx.x;
+    int ps = -1;
+    if (c < C) {
+      const int own = owners[c];
+      if (own >= 0)
+        for (int p = 0; p < NP; ++p)
+          if (probes[p] == own) ps = p;
+    }
+    const bool m = ps >= 0;
+    const unsigned mask = __ballot_sync(0xffffffffu, m);
+    if (lane == 0) warp_n[warp] = __popc(mask);
+    __syncthreads();
+    int off = base_s;
+    for (int w = 0; w < warp; ++w) off += warp_n[w];
+    if (m) {
+      const int at = off + __popc(mask & ((1u << lane) - 1));
+      out[at] = c;
+      if (slots != nullptr) slots[static_cast<size_t>(qi) * C + at] = ps;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int w = 0; w < kListThreads / 32; ++w) base_s += warp_n[w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) counts[qi] = base_s;
+}
+
+inline cudaError_t launch_list_members(const int* owners, int C, const int* probe,
+                                       int Q, int NP, int* members, int* slots,
+                                       int* counts, cudaStream_t st) {
+  const size_t smem = static_cast<size_t>(NP) * sizeof(int);
+  const cudaError_t err = allow_smem(list_members, smem);
+  if (err != cudaSuccess) return err;
+  list_members<<<Q, kListThreads, smem, st>>>(owners, C, probe, NP, members,
+                                              slots, counts);
+  return cudaGetLastError();
+}
+
+// List the occupied, live slots (id != -1, live != 0) of n_blk pool blocks
+// (their ids in gblk[], shared memory) by warp ballots: each thread tests
+// kLoads slots at once, their ids and live bytes loaded together, and
+// emit(at, slot, j) records slot (of gblk[j]) at list place `at`; *n_list
+// (shared, zero on entry) counts them.  Every thread of the block calls it;
+// the caller's barrier makes the list visible.
+template <int kLoads, typename Emit>
+__device__ __forceinline__ void list_live_slots(const int* gblk, int n_blk, int T_m,
+                                                const int* __restrict__ pool_ids,
+                                                const uint8_t* __restrict__ pool_live,
+                                                int* n_list, Emit emit) {
+  const int lane = threadIdx.x & 31;
+  const int n_slots = n_blk * T_m;
+  for (int x0 = 0; x0 < n_slots; x0 += kLoads * blockDim.x) {
+    int slot[kLoads], blk[kLoads];
+    bool ok[kLoads];
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+      const int x = x0 + k * blockDim.x + threadIdx.x;
+      const int jj = x / T_m;
+      blk[k] = jj;
+      slot[k] = x < n_slots ? gblk[jj] * T_m + (x - jj * T_m) : 0;
+      ok[k] = x < n_slots && pool_ids[slot[k]] != -1 && pool_live[slot[k]] != 0;
+    }
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+      const unsigned mask = __ballot_sync(0xffffffffu, ok[k]);
+      int base = 0;
+      if (lane == 0 && mask) base = atomicAdd(n_list, __popc(mask));
+      base = __shfl_sync(0xffffffffu, base, 0);
+      if (ok[k]) emit(base + __popc(mask & ((1u << lane) - 1)), slot[k], blk[k]);
+    }
+  }
+}
+
+// Threshold selection: keys[0..K) hold the sorted top-K so far, keys[K..seg)
+// a candidate area that takes a key only below the K'-th best (*thr).  Sort
+// the top-K and the area together (seg keys, a power of two), empty the
+// area, and take the new K-th best as the threshold.  Called by every
+// thread after a barrier; returns synchronized.
+__device__ __forceinline__ void merge_area(unsigned long long* keys, int seg, int K,
+                                           int* cnt, unsigned long long* thr) {
+  bitonic_sort(keys, seg);
+  for (int i = K + threadIdx.x; i < seg; i += blockDim.x) keys[i] = EMPTY_KEY;
+  if (threadIdx.x == 0) {
+    *thr = keys[K - 1];
+    *cnt = 0;
+  }
+  __syncthreads();
 }
 
 // Asynchronous 16-byte copies from device memory into shared memory

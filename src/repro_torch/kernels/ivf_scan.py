@@ -63,38 +63,63 @@ def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
+# csrc/coarse_topk.cu: centroids a tile, dims a slice (rows staged as 36
+# floats), the candidate area a query keeps at least beside its top-NP
+COARSE_TILE, COARSE_SLICE, COARSE_AREA = 128, 32, 32
+# pass 1's chunks of one query tile at most: see split_centroids
+COARSE_MAX_SPLITS = 128
+
+
+def _coarse_smem(qt: int, seg: int) -> int:
+    """Shared memory of a pass-1 block: qt segments of seg keys and two
+    steps of qt + 128 staged rows of a slice."""
+    return 8 * qt * seg + 4 * 2 * (qt + COARSE_TILE) * (COARSE_SLICE + 4)
+
+
 def split_centroids(q: int, n: int, d: int, nprobe: int,
                     n_sm: int) -> tuple[int, int, int, int]:
-    """(TC, CB, chunk, S): how pass 1 of ``coarse_topk`` cuts N centroids
-    into S chunks of whole tiles of TC, each query keeping an area of CB
-    candidates beside its top-NP.  TC is the largest of 64, 32, 16, 8 whose
-    tile and kQT = 8 query segments of next_pow2(NP + TC) keys fit in
-    shared memory; S gives about four blocks per SM over the query tiles,
-    while pass 2's S*NP keys of a query fit in shared memory; CB is up to
-    four tiles (fewer sorts), as far as the chunk and shared memory allow."""
-    keys_max = _next_pow2(launch.SMEM_LIMIT // 8 + 1) // 2  # largest power of two
-    if nprobe > keys_max:
+    """(QT, seg, chunk, S): how pass 1 of ``coarse_topk`` cuts the work.
+
+    Queries go in tiles of QT (the smallest of 8, 16, 32, 64 that holds the
+    batch, 64 at most), each query keeping a segment of ``seg`` keys (a
+    power of two, its top-NP and an area of at least COARSE_AREA
+    candidates); where that does not fit in shared memory QT is halved, to
+    8 at least, and where the centroids are few tiles (the grid would fill
+    less than a quarter of the SMs) to 16.  The N centroids are cut into S
+    chunks of whole tiles of COARSE_TILE, about as many blocks as the SMs
+    hold at once over the query tiles, and at most COARSE_MAX_SPLITS.  The
+    dim D does not change the plan: pass 1 stages slices of COARSE_SLICE.
+
+    The cap bounds pass 2 (``merge_sorted_partials``), which holds a
+    query's (S + 1) * NP keys and a gather buffer in shared memory and
+    ranks the runs' first ceil(2 NP / S) keys among themselves for its
+    bound; the DSSM deployment's 160,000 lists need about 128 chunks to
+    fill 132 SMs with one query tile, and more chunks would only add runs
+    to merge."""
+    keys_max = launch.SMEM_LIMIT // 8
+    if 2 * nprobe > keys_max:
         raise ValueError(
             f"coarse_topk merges S*NP keys of a query in shared memory; "
-            f"nprobe {nprobe} exceeds {keys_max}"
+            f"nprobe {nprobe} exceeds {keys_max // 2}"
         )
-
-    def smem(tc: int, cb: int) -> int:
-        return 8 * 8 * _next_pow2(nprobe + cb) + 4 * (8 * d + tc * (d + 1) + tc)
-
-    tc = next((t for t in (64, 32, 16, 8) if smem(t, t) <= launch.SMEM_LIMIT), None)
-    if tc is None:
+    seg = _next_pow2(nprobe + COARSE_AREA)
+    qt = min(64, max(8, _next_pow2(q)))
+    while qt > 8 and _coarse_smem(qt, seg) > launch.SMEM_LIMIT:
+        qt //= 2
+    if _coarse_smem(qt, seg) > launch.SMEM_LIMIT:
         raise ValueError(
-            f"coarse_topk: nprobe {nprobe} at dim {d} exceeds {launch.SMEM_LIMIT} "
-            "bytes of shared memory"
+            f"coarse_topk: nprobe {nprobe} needs {seg} keys a query, more "
+            f"than {launch.SMEM_LIMIT} bytes of shared memory hold"
         )
-    q_tiles = -(-q // 8)
-    s = max(1, min(-(-n // tc), -(-4 * n_sm // q_tiles), keys_max // nprobe))
-    chunk = -(-(-(-n // s)) // tc) * tc
-    cb = tc
-    while cb < min(4 * tc, chunk) and smem(tc, 2 * cb) <= launch.SMEM_LIMIT:
-        cb *= 2
-    return tc, cb, chunk, -(-n // chunk)
+    n_tiles = -(-n // COARSE_TILE)
+    while qt > 16 and -(-q // qt) * min(n_tiles, COARSE_MAX_SPLITS) < n_sm // 4:
+        qt //= 2  # few centroid tiles: more, smaller query tiles fill the SMs
+    per_sm = max(1, min(4, launch.SM_SHARED // (_coarse_smem(qt, seg) + 1024)))
+    q_tiles = -(-q // qt)
+    s = max(1, min(n_tiles, -(-per_sm * n_sm // q_tiles),
+                   COARSE_MAX_SPLITS, keys_max // nprobe - 1))
+    chunk = -(-(-(-n // s)) // COARSE_TILE) * COARSE_TILE
+    return qt, seg, chunk, -(-n // chunk)
 
 
 def coarse_topk(
@@ -115,11 +140,12 @@ def coarse_topk(
     out_d = torch.empty((q, nprobe), dtype=torch.float32, device=dev)
     if q == 0:
         return out_i, out_d
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    tc, cb, chunk, s = split_centroids(q, n, d, nprobe, n_sm)
+    qt, seg, chunk, s = split_centroids(q, n, d, nprobe, launch.sm_count(dev))
+    if -(-q // qt) > 2**31 - 1 or s > 65535:
+        raise ValueError(f"coarse_topk: grid ({-(-q // qt)}, {s}) too large")
     partial = torch.empty((q, s, nprobe), dtype=torch.int64, device=dev)
     launch.run("coarse_topk", "coarse_topk_f32", dev, queries.data_ptr(),
-               centroids.data_ptr(), q, n, d, nprobe, tc, cb, chunk, s,
+               centroids.data_ptr(), q, n, d, nprobe, qt, seg, chunk, s,
                partial.data_ptr(), out_i.data_ptr(), out_d.data_ptr())
     LAUNCHES["coarse_topk"] += 1
     return out_i, out_d
@@ -152,7 +178,7 @@ def ivf_block_scan(
 
 
 def split_candidates(c: int, q: int, kprime: int, n_sm: int) -> tuple[int, int]:
-    """(S, chunk): how pass 1 of the int8 and PQ scans cuts C candidates into
+    """(S, chunk): how pass 1 of the PQ scan cuts C candidates into
     S chunks: about four blocks per SM over the Q x S grid, while pass 2's
     S*K' keys fit in shared memory as a power of two."""
     keys_max = _next_pow2(launch.SMEM_LIMIT // 8 + 1) // 2  # largest power of two
@@ -177,16 +203,56 @@ def split_members(q: int, c: int, t: int, d: int, esize: int, kprime: int,
     once (up to four each, as shared memory allows), so the grid runs in
     one wave, while pass 2's S sorted runs of K' keys fit in shared
     memory."""
-    rows = 1 << max(0, min(8, (TOPK_TILE_BYTES // max(1, d * esize)).bit_length() - 1))
-    lst = max(TOPK_LIST, t)
-    seg = _next_pow2(2 * kprime + 2 * rows)
+    rows, lst, seg = _member_tiles(t, d * esize, kprime, TOPK_TILE_BYTES, TOPK_LIST)
     smem = (4 * ((d + 3) & ~3) + 8 * seg + TOPK_STAGES * rows * d * esize
             + 4 * (lst + lst // t))
+    return {"s": _member_splits(q, c, kprime, smem, n_sm), "rows": rows,
+            "ns": TOPK_STAGES, "list": lst, "seg": seg, "smem": smem}
+
+
+def _member_tiles(t: int, row_bytes: int, kprime: int, tile_bytes: int,
+                  list_slots: int) -> tuple[int, int, int]:
+    """(rows, list, seg) of the member-split scans: tiles of a power of two
+    rows (about ``tile_bytes``, 1-256), lists of at least
+    max(``list_slots``, T) slots, and seg keys for the top-K' and a
+    candidate area of at least two tiles."""
+    rows = 1 << max(0, min(8, (tile_bytes // max(1, row_bytes)).bit_length() - 1))
+    return rows, max(list_slots, t), _next_pow2(2 * kprime + 2 * rows)
+
+
+def _member_splits(q: int, c: int, kprime: int, smem: int, n_sm: int) -> int:
+    """Blocks a query: as many as the SMs hold at once (up to four each, as
+    ``smem`` allows), so the grid runs in one wave, while pass 2's S sorted
+    runs of K' keys fit in shared memory."""
     per_sm = max(1, min(4, launch.SM_SHARED // (smem + 1024)))
     s_max = max(1, launch.SMEM_LIMIT // (8 * kprime) - 1)
-    s = max(1, min(c, per_sm * n_sm // max(q, 1), s_max))
-    return {"s": s, "rows": rows, "ns": TOPK_STAGES, "list": lst, "seg": seg,
-            "smem": smem}
+    return max(1, min(c, per_sm * n_sm // max(q, 1), s_max))
+
+
+# csrc/ivf_block_topk_int8.cu: bytes of matched query rows a group stages,
+# of a staged tile of rows, and the slots a list holds.  Half the float
+# scan's list and tile: the int8 rows are a quarter of the bytes, and the
+# smaller blocks let twice as many share an SM (at SIFT1M 8 splits a
+# query, where 4096-slot lists and 16 KB tiles allow 4)
+INT8_QROW_BYTES, INT8_TILE_BYTES, INT8_LIST = 8192, 8192, 2048
+
+
+def split_members_int8(q: int, c: int, t: int, d: int, kprime: int,
+                       n_sm: int) -> dict[str, int]:
+    """``split_members`` for the int8 scan, with its own tile and list sizes
+    (INT8_TILE_BYTES, INT8_LIST), whose rows are D bytes and whose pass 1
+    also stages, for each member block of a group, the matched query row (D
+    bytes, padded to 16) and its meta: groups of ``grp`` member blocks, as
+    many as a list holds (``list // t``) while their query rows stay within
+    INT8_QROW_BYTES; each listed slot keeps its id, member (2 bytes) and
+    scale."""
+    rows, lst, seg = _member_tiles(t, d, kprime, INT8_TILE_BYTES, INT8_LIST)
+    dq = (d + 15) & ~15
+    grp = max(1, min(lst // t, INT8_QROW_BYTES // dq))
+    smem = (8 * seg + grp * dq + TOPK_STAGES * rows * d + lst * (4 + 4 + 2)
+            + grp * 12)
+    return {"s": _member_splits(q, c, kprime, smem, n_sm), "rows": rows,
+            "ns": TOPK_STAGES, "list": lst, "grp": grp, "seg": seg, "smem": smem}
 
 
 def ivf_block_topk(
@@ -324,28 +390,36 @@ def ivf_block_topk_int8(
             f"ivf_block_topk_int8 reads codes as 4-byte words: dim {d} must "
             "be a multiple of 4 and the code tensors 4-byte aligned"
         )
-    if _next_pow2(kprime + t) * 8 + d + npr * 4 > launch.SMEM_LIMIT:
-        raise ValueError(
-            f"ivf_block_topk_int8 sorts K'+T = {kprime + t} keys in shared "
-            f"memory; that exceeds {launch.SMEM_LIMIT} bytes"
-        )
     dev = q_codes.device
+    plan = split_members_int8(q, c, t, d, kprime, launch.sm_count(dev))
+    if plan["smem"] > launch.SMEM_LIMIT or npr * 4 > launch.SMEM_LIMIT:
+        raise ValueError(
+            f"ivf_block_topk_int8: K' = {kprime}, T = {t}, dim {d} and nprobe "
+            f"{npr} need more than {launch.SMEM_LIMIT} bytes of shared memory"
+        )
     if c == 0 or q == 0:  # no candidate: nothing to launch
         return (
             torch.full((q, kprime), float("inf"), device=dev),
             torch.full((q, kprime), -1, dtype=torch.int32, device=dev),
         )
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    s, chunk = split_candidates(c, q, kprime, n_sm)
-    partial = torch.empty((q, s, kprime), dtype=torch.int64, device=dev)
+    if q > 2**31 - 1 or plan["s"] > 65535:
+        raise ValueError(f"ivf_block_topk_int8: grid ({q}, {plan['s']}) too large")
+    vec = d % 16 == 0 and pool.data_ptr() % 16 == 0
+    members = torch.empty((2 * q * c + q,), dtype=torch.int32, device=dev)
+    mslots = members[q * c : 2 * q * c]  # [Q, C] probe slot of each member
+    counts = members[2 * q * c :]  # [Q] members of each query
+    partial = torch.empty((q, plan["s"], kprime), dtype=torch.int64, device=dev)
     out_d = torch.empty((q, kprime), dtype=torch.float32, device=dev)
     out_i = torch.empty((q, kprime), dtype=torch.int32, device=dev)
     launch.run("ivf_block_topk_int8", "ivf_block_topk_int8", dev,
                q_codes.data_ptr(), q_meta.data_ptr(), pool.data_ptr(),
                pool_scales.data_ptr(), t, d, block_ids.data_ptr(),
-               block_owners.data_ptr(), c, chunk, s, pool_ids.data_ptr(),
+               block_owners.data_ptr(), c, plan["s"], pool_ids.data_ptr(),
                pool_live.data_ptr(), probe_idx.data_ptr(), q, npr, kprime,
-               partial.data_ptr(), out_d.data_ptr(), out_i.data_ptr())
+               plan["rows"], plan["list"], plan["grp"], plan["seg"], plan["ns"],
+               int(vec), members.data_ptr(), mslots.data_ptr(),
+               counts.data_ptr(), partial.data_ptr(), out_d.data_ptr(),
+               out_i.data_ptr())
     LAUNCHES["ivf_block_topk_int8"] += 1
     return out_d, out_i
 
@@ -388,8 +462,7 @@ def ivf_pq_block_topk(
             torch.full((q, kprime), float("inf"), device=dev),
             torch.full((q, kprime), -1, dtype=torch.int32, device=dev),
         )
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    s, chunk = split_candidates(c, q, kprime, n_sm)
+    s, chunk = split_candidates(c, q, kprime, launch.sm_count(dev))
     partial = torch.empty((q, s, kprime), dtype=torch.int64, device=dev)
     out_d = torch.empty((q, kprime), dtype=torch.float32, device=dev)
     out_i = torch.empty((q, kprime), dtype=torch.int32, device=dev)

@@ -33,8 +33,9 @@ SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                            _P],
     "rerank_topk_f32": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "ivf_block_topk_int8": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P,
-                            _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "ivf_block_topk_int8": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P,
+                            _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                            _P, _P, _P, _P, _P],
     "ivf_pq_block_topk": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _I,
                           _I, _I, _P, _P, _P, _P],
     "pq_adc_f32": [_P, _P, _I, _I, _I, _P, _P],

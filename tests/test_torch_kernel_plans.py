@@ -1,12 +1,15 @@
 """How the port's split kernels cut their work, and the plain version of
 the paged attention's split-K merge.
 
-The planners (``paged_attention.plan_splits``, ``ivf_scan.split_members``)
-run on the host, so their plans are checked here on the CPU at the shapes
-the port serves: llama3-8b's [serve] (16 x 576 positions) and
-[decode_32k] (32,768 positions), and the SIFT1M and DSSM search batches.
-Every position and every member block falls in exactly one split, and
-each block's shared memory stays within ``launch.SMEM_LIMIT``.
+The planners (``paged_attention.plan_splits``, ``ivf_scan.split_members``,
+``ivf_scan.split_members_int8``, ``ivf_scan.split_centroids``) run on the
+host, so their plans are checked here on the CPU at the shapes the port
+serves: llama3-8b's [serve] (16 x 576 positions) and [decode_32k] (32,768
+positions), pool blocks over 32 positions and GQA groups over 8 heads, and
+the SIFT1M and DSSM search batches.  Every position, every member block and
+every centroid falls in exactly one split, and each block's shared memory
+stays within ``launch.SMEM_LIMIT``.  ``paged_attention.check_shapes`` is
+held to every LM config of the reference.
 
 ``ref.paged_decode_attention_split_ref`` computes the kernel's split-K
 scheme (per-split max, sum and numerator, merged by rescaling) in plain
@@ -21,6 +24,7 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from repro.configs.base import get_arch, list_archs
 from repro.kernels import ref as jref
 from repro.kernels.paged_attention import paged_decode_attention as jpaged
 from repro_torch.kernels import ivf_scan, launch, paged_attention, ref
@@ -108,6 +112,188 @@ def test_split_members_covers_every_member_once(q, c, t, d, esize, kprime):
         assert (hits == 1).all()
 
 
+def _kernel_positions(nb: int, t: int, bps: int, s: int, step: int) -> np.ndarray:
+    """How many times pass 1 reads each (table entry, slot) of a full table
+    when a split's positions go in tiles (float32) or steps (bfloat16) of
+    ``step``: position p of split i is slot p % t of entry i*bps + p // t,
+    as csrc/paged_decode_attention.cu computes it."""
+    hits = np.zeros((nb, t), np.int64)
+    for i in range(s):
+        n_pos = min(bps * t, nb * t - i * bps * t)
+        for p0 in range(0, n_pos, step):
+            for p in range(p0, min(n_pos, p0 + step)):
+                hits[i * bps + p // t, p % t] += 1
+    return hits
+
+
+@pytest.mark.parametrize("b,kvh,g,nb,t,dh,esize", [
+    (4, 2, 4, 9, 48, 64, 4),  # blocks of 48: tiles straddle blocks
+    (4, 2, 4, 9, 48, 64, 2),
+    (16, 8, 4, 36, 64, 128, 4),  # [serve]'s positions in blocks of 64
+    (16, 8, 4, 36, 64, 128, 2),
+    (2, 8, 4, 256, 128, 128, 2),  # 32,768 positions in blocks of 128
+    (3, 2, 4, 7, 128, 32, 4),
+    (16, 2, 16, 36, 16, 128, 2),  # G = 16 (H 32 over 2 KV heads)
+    (5, 2, 16, 9, 64, 64, 4),  # G = 16 and blocks of 64
+    (3, 1, 12, 5, 8, 16, 4),  # G = 12: launches of 8 and 4 heads
+])
+def test_plan_splits_large_blocks_and_groups(b, kvh, g, nb, t, dh, esize):
+    plan = paged_attention.plan_splits(b, kvh, g, nb, t, dh, esize, N_SM)
+    bps, s, tb = plan["bps"], plan["s"], plan["tb"]
+    assert tb == (max(1, paged_attention.TILE // t))
+    assert bps % tb == 0 and bps <= plan["max_bps"]
+    if t > paged_attention.TILE:  # at least a block, about 1024 positions
+        assert plan["max_bps"] == max(1, paged_attention.MAX_SPLIT_TILES
+                                      * paged_attention.TILE // t)
+    assert s * bps >= nb > (s - 1) * bps
+    assert (_split_cover(nb, t, bps, s) == 1).all()
+    step = (paged_attention.STEP if esize == 2
+            else paged_attention.tile_positions(t))
+    assert step <= paged_attention.TILE
+    assert (_kernel_positions(nb, t, bps, s, step) == 1).all()
+    gc = min(g, paged_attention.MAX_GROUP)
+    assert plan["gc"] == gc and plan["scratch"] == b * kvh * s * gc * (dh + 2)
+    assert 1 <= s <= 65535 and plan["smem"] <= launch.SMEM_LIMIT
+    assert 4 * s * gc <= launch.SMEM_LIMIT
+    heads = [min(paged_attention.MAX_GROUP, g - g0)
+             for g0 in range(0, g, paged_attention.MAX_GROUP)]
+    assert sum(heads) == g and max(heads) <= paged_attention.MAX_GROUP
+
+
+def _lm_configs():
+    out = []
+    for arch in list_archs():
+        spec = get_arch(arch)
+        if spec.family == "lm":
+            for name, cfg in (("full", spec.config), ("smoke", spec.smoke_config)):
+                out.append(pytest.param(cfg, id=f"{arch}-{name}"))
+    return out
+
+
+@pytest.mark.parametrize("cfg", _lm_configs())
+@pytest.mark.parametrize("esize", [2, 4])
+def test_lm_configs_pass_paged_shape_checks(cfg, esize):
+    """Every LM config of the reference, in bfloat16 and float32, at the
+    reference's paged block size (4, its tests), the served one (16) and
+    blocks over 32 positions, passes the kernel wrapper's shape checks,
+    and its plan fits shared memory: the card serves what the reference
+    serves."""
+    h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    for t in (4, 16, 48, 64, 128):
+        paged_attention.check_shapes(h, kvh, t, dh, esize)
+        plan = paged_attention.plan_splits(16, kvh, h // kvh, 4096 // t, t, dh,
+                                           esize, N_SM)
+        assert plan["smem"] <= launch.SMEM_LIMIT
+        assert 4 * plan["s"] * plan["gc"] <= launch.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("h,kvh,t,dh,esize", [
+    (8, 3, 16, 64, 2),  # heads not a multiple of the KV heads
+    (8, 2, 0, 64, 4),  # an empty block
+    (8, 2, 16, 272, 2),  # dh over 256
+    (8, 2, 16, 260, 4),
+    (8, 2, 16, 40, 2),  # bf16: dh not a multiple of 16
+    (8, 2, 16, 18, 4),  # float32: dh not a multiple of 4
+])
+def test_paged_shape_checks_pin_the_remaining_limits(h, kvh, t, dh, esize):
+    """The kernels' remaining domain (ROADMAP "Faults found"): dh <= 256, a
+    multiple of 16 in bfloat16 or of 4 in float32; blocks and groups of any
+    size pass."""
+    with pytest.raises(ValueError):
+        paged_attention.check_shapes(h, kvh, t, dh, esize)
+    paged_attention.check_shapes(64, 4, 1000, 128, esize)  # G 16, T 1000
+
+
+def _members(owners: np.ndarray, probe: np.ndarray):
+    """Each query's member candidates in candidate order, with the probe
+    slot of each, as ``list_members`` (csrc/topk_common.cuh) lists them."""
+    out = []
+    for pr in probe:
+        slot = {int(o): p for p, o in enumerate(pr)}
+        out.append([(c, slot[int(o)]) for c, o in enumerate(owners)
+                    if o >= 0 and int(o) in slot])
+    return out
+
+
+@pytest.mark.parametrize("q,c,t,d,kprime", [
+    (64, 1570, 1024, 128, 128),  # SIFT1M's int8 batch
+    (64, 60, 1024, 128, 128),
+    (13, 12, 16, 16, 16),  # the card tests' hand-made pool
+    (5, 8, 64, 36, 16),  # rows of 36 bytes: staged by 4-byte loads
+    (9, 40, 1024, 128, 128),
+    (2, 300, 64, 32, 37),
+])
+def test_split_members_int8_covers_every_member_once(q, c, t, d, kprime):
+    """Pass 1 of ``ivf_block_topk_int8`` gives split i of a query with n
+    members the members [n*i // S, n*(i+1) // S), in groups of ``grp``
+    blocks, and stages for each the query row of its probe slot: every
+    (query, member) pair is scored once, against the probe slot whose
+    cluster owns it (the plain version's ``_pslot_from_owners``)."""
+    plan = ivf_scan.split_members_int8(q, c, t, d, kprime, N_SM)
+    s, grp, rows, seg = plan["s"], plan["grp"], plan["rows"], plan["seg"]
+    assert 1 <= s <= c and plan["smem"] <= launch.SMEM_LIMIT
+    assert (s + 1) * kprime * 8 <= launch.SMEM_LIMIT  # pass 2's sorted runs
+    assert seg & (seg - 1) == 0 and seg - kprime >= 2 * rows
+    assert rows & (rows - 1) == 0 and 2 <= plan["ns"] <= 4
+    assert grp >= 1 and grp * t <= plan["list"] < 2**16 * t  # 2-byte members
+    dq = (d + 15) & ~15
+    assert grp * dq <= ivf_scan.INT8_QROW_BYTES or grp == 1
+    rng = np.random.default_rng(c + q)
+    ncl, npr = max(4, c // 6), 4
+    owners = rng.integers(0, ncl, c).astype(np.int32)
+    owners[rng.random(c) < 0.2] = -1  # holes: NULL owners
+    probe = np.stack([rng.permutation(ncl)[:npr] for _ in range(q)]).astype(np.int32)
+    want = ref._pslot_from_owners(torch.from_numpy(probe), torch.from_numpy(owners))
+    for qi, mem in enumerate(_members(owners, probe)):
+        n, seen = len(mem), {}
+        for i in range(s):
+            lo, hi = n * i // s, n * (i + 1) // s
+            for g0 in range(lo, hi, grp):
+                group = mem[g0 : min(hi, g0 + grp)]
+                assert len(group) <= grp
+                for cand, slot in group:
+                    seen[cand] = seen.get(cand, 0) + 1
+                    assert probe[qi, slot] == owners[cand]
+                    assert int(want[qi, cand]) == slot
+        members = set(int(x) for x in torch.nonzero(want[qi] >= 0).flatten())
+        assert set(seen) == members and all(v == 1 for v in seen.values())
+
+
+@pytest.mark.parametrize("q,n,d,nprobe", [
+    (64, 1, 16, 1),
+    (13, 31, 16, 31),  # nprobe = N
+    (64, 31, 128, 8),
+    (64, 4000, 128, 32),  # SIFT1M
+    (7, 4000, 128, 32),
+    (200, 4000, 128, 32),  # four query tiles
+    (64, 160_000, 64, 32),  # DSSM: 160,000 lists
+    (9, 160_000, 64, 300),
+])
+def test_split_centroids_covers_every_centroid_once(q, n, d, nprobe):
+    """Pass 1 of ``coarse_topk`` gives chunk i the centroids [i*chunk,
+    min(N, (i+1)*chunk)) in tiles of COARSE_TILE: every centroid falls in
+    one chunk, S stays within its cap, and the segments, the staged slices
+    and pass 2's (S + 1) * NP keys of a query fit in shared memory."""
+    qt, seg, chunk, s = ivf_scan.split_centroids(q, n, d, nprobe, N_SM)
+    n_tiles = -(-n // ivf_scan.COARSE_TILE)
+    assert qt in (8, 16, 32, 64)
+    if qt < min(q, 64) and qt > 8:  # halved: for shared memory or for the SMs
+        assert (ivf_scan._coarse_smem(2 * qt, seg) > launch.SMEM_LIMIT
+                or -(-q // (2 * qt)) * min(n_tiles, ivf_scan.COARSE_MAX_SPLITS)
+                < N_SM // 4)
+    assert seg & (seg - 1) == 0 and seg >= nprobe + ivf_scan.COARSE_AREA
+    assert ivf_scan._coarse_smem(qt, seg) <= launch.SMEM_LIMIT
+    assert chunk % ivf_scan.COARSE_TILE == 0
+    assert 1 <= s <= ivf_scan.COARSE_MAX_SPLITS and s * chunk >= n > (s - 1) * chunk
+    assert (s + 1) * nprobe * 8 <= launch.SMEM_LIMIT
+    hits = np.zeros(n, np.int64)
+    for i in range(s):
+        hits[i * chunk : min(n, (i + 1) * chunk)] += 1
+    assert (hits == 1).all()
+    if n >= 4000:  # pass 1 splits the centroids over many blocks
+        assert s * -(-q // qt) >= min(-(-n // ivf_scan.COARSE_TILE), 32)
+
+
 def _paged_inputs(b, h, kvh, dh, t, nb, lengths, seed):
     rng = np.random.default_rng(seed)
     p = nb * b + 2
@@ -126,6 +312,8 @@ def _paged_inputs(b, h, kvh, dh, t, nb, lengths, seed):
     (6, 4, 4, 32, 8, 6, 4),  # MHA (G = 1), the last split partly past the table
     (6, 8, 1, 16, 4, 6, 1),  # MQA (G = 8), one block a split
     (6, 6, 2, 16, 16, 6, 6),  # G = 3, one split
+    (6, 4, 2, 16, 64, 3, 1),  # blocks of 64 positions, one a split
+    (6, 32, 2, 16, 4, 4, 2),  # G = 16: two launches of 8 heads on the card
 ])
 def test_paged_split_ref_matches_plain_and_jax(b, h, kvh, dh, t, nb, bps):
     """Lengths 0, 1, on a split edge, one past it, two splits, full."""

@@ -134,16 +134,17 @@ def test_cpu_dispatch_runs_plain_and_launches_nothing():
 ])
 def test_split_centroids_plans_any_number_of_lists(q, n, d, nprobe):
     """coarse_topk's plan: whole tiles per chunk, every centroid in one
-    chunk, pass 2's S*NP keys of a query within shared memory, and pass
-    1's tile and segments within shared memory, whatever N is."""
-    tc, cb, chunk, s = ivf_scan.split_centroids(q, n, d, nprobe, n_sm=132)
-    assert chunk % tc == 0 and s * chunk >= n > (s - 1) * chunk
-    assert s * nprobe <= 16384
-    assert cb % tc == 0 and cb & (cb - 1) == 0 and tc <= cb <= max(tc, chunk)
-    seg = 1 << (nprobe + cb - 1).bit_length()
-    assert 8 * 8 * seg + 4 * (8 * d + tc * (d + 1) + tc) <= launch.SMEM_LIMIT
+    chunk, pass 2's sorted runs of a query ((S + 1) * NP keys) within
+    shared memory, and pass 1's segments and staged slices within shared
+    memory, whatever N and D are; an nprobe whose runs cannot fit raises."""
+    qt, seg, chunk, s = ivf_scan.split_centroids(q, n, d, nprobe, n_sm=132)
+    assert chunk % ivf_scan.COARSE_TILE == 0 and s * chunk >= n > (s - 1) * chunk
+    assert (s + 1) * nprobe * 8 <= launch.SMEM_LIMIT
+    assert seg & (seg - 1) == 0 and seg >= nprobe + ivf_scan.COARSE_AREA
+    assert qt in (8, 16, 32, 64)
+    assert ivf_scan._coarse_smem(qt, seg) <= launch.SMEM_LIMIT
     with pytest.raises(ValueError, match="nprobe"):
-        ivf_scan.split_centroids(q, n, 1 << 14, nprobe, n_sm=132)
+        ivf_scan.split_centroids(q, max(n, 20_000), d, 20_000, n_sm=132)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -387,6 +387,163 @@ def test_ivf_block_topk_int8_kernel_many_candidates(cuda):
     assert torch.equal(ki, pi) and torch.equal(kd, pd)
 
 
+def _int8_pool(rng, p, t, d):
+    codes = rng.integers(-127, 128, (p, t, d)).astype(np.int8)
+    scales = rng.uniform(0.01, 0.05, (p, t)).astype(np.float32)
+    return codes, scales
+
+
+def _int8_queries(rng, q, np_, d):
+    q_codes = rng.integers(-127, 128, (q, np_, d)).astype(np.int8)
+    sq = rng.uniform(0.01, 0.05, (q, np_)).astype(np.float32)
+    qn = (sq * sq) * np.sum(q_codes.astype(np.int32) ** 2, axis=-1).astype(np.float32)
+    return q_codes, np.stack([sq, qn], axis=-1).astype(np.float32)
+
+
+def _int8_run(cuda, args, kprime):
+    """The kernel against the plain version: the same bits (the epilogue's
+    roundings are spelled out in both, the integer sums are exact)."""
+    args = [_t(a).to(cuda) for a in args]
+    kd, ki = ivf_scan.ivf_block_topk_int8(*args, kprime=kprime)
+    pd, pi = ref.ivf_block_topk_int8_ref(*args, kprime=kprime)
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi) and torch.equal(kd, pd)
+    return kd, ki
+
+
+@pytest.mark.cuda
+def test_ivf_block_topk_int8_kernel_ties_across_splits(cuda):
+    """Every member block holds the same codes and scales, so each score
+    occurs once per block, and the ties at the K'-th place span blocks that
+    different blocks of pass 1 score: the lowest locations must win."""
+    rng = np.random.default_rng(21)
+    q, p, t, d, n_clusters = 2, 24, 64, 32, 6
+    codes, scales = _int8_pool(rng, 1, t, d)
+    codes = np.broadcast_to(codes, (p, t, d)).copy()
+    scales = np.broadcast_to(scales, (p, t)).copy()
+    pids = np.arange(p * t, dtype=np.int32).reshape(p, t)
+    pids[:, 40:] = -1  # 40 occupied slots a block
+    live = (pids != -1).astype(np.uint8)
+    owners = (np.arange(p) % n_clusters).astype(np.int32)
+    probe = np.array([[0, 1, 2], [3, 4, 5]], np.int32)
+    q_codes, q_meta = _int8_queries(rng, q, 3, d)
+    q_codes[:] = q_codes[:, :1]  # one residual for every probe slot
+    q_meta[:] = q_meta[:, :1]
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ivf_scan.split_members_int8(q, p, t, d, 100, n_sm)["s"] > 1
+    args = (q_codes, q_meta, codes, scales, np.arange(p, dtype=np.int32),
+            owners, pids, live, probe)
+    for kprime in (100, 37):  # 12 member blocks x 40 rows, ties at the K'-th
+        kd, ki = _int8_run(cuda, args, kprime)
+        assert (ki >= 0).all()
+
+
+@pytest.mark.cuda
+def test_ivf_block_topk_int8_kernel_occupancy_cases(cuda):
+    """Member blocks with no occupied slot, every slot occupied and live,
+    tombstones, every slot tombstoned, one live row; K' above a query's
+    occupied rows; a query whose probes own no candidate (all (inf, -1))."""
+    rng = np.random.default_rng(22)
+    q, p, t, d = 5, 8, 64, 32
+    codes, scales = _int8_pool(rng, p, t, d)
+    pids = np.arange(p * t, dtype=np.int32).reshape(p, t)
+    pids[0] = -1  # no occupied slot
+    pids[2, 20:] = -1
+    pids[3, 5:] = -1
+    live = (pids != -1).astype(np.uint8)  # block 1: every slot live
+    live[2, ::3] = 0  # tombstones keep their stale id
+    live[4] = 0  # every slot tombstoned
+    live[5] = 0
+    live[5, 17] = 1  # one live row
+    owners = np.array([0, 0, 1, 1, 2, 2, 3, 3], np.int32)
+    probe = np.array([[0, 1], [1, 2], [0, 3], [2, 3], [7, 8]], np.int32)
+    q_codes, q_meta = _int8_queries(rng, q, 2, d)
+    args = (q_codes, q_meta, codes, scales, np.arange(p, dtype=np.int32),
+            owners, pids, live, probe)
+    for kprime in (300, 16):
+        kd, ki = _int8_run(cuda, args, kprime)
+        assert torch.isinf(kd[4]).all() and (ki[4] == -1).all()
+        got = ki.cpu().numpy()
+        assert (live.reshape(-1)[got[got >= 0]] == 1).all()
+    assert (ki[0] >= 0).all()  # query 0 has more occupied rows than 16
+
+
+@pytest.mark.cuda
+def test_ivf_block_topk_int8_kernel_sift_blocks(cuda):
+    """SIFT1M's block shape (T 1024, D 128, a quarter occupied), exact ties
+    across blocks, and more member blocks per split than one group holds,
+    so pass 1 lists several groups and its candidate area fills."""
+    rng = np.random.default_rng(23)
+    q, p, t, d, n_clusters, np_ = 64, 40, 1024, 128, 40, 32
+    codes, scales = _int8_pool(rng, p, t, d)
+    codes[7], scales[7] = codes[3], scales[3]
+    pids = np.arange(p * t, dtype=np.int32).reshape(p, t)
+    fill = rng.integers(200, 320, p)
+    for b in range(p):
+        pids[b, fill[b]:] = -1
+    pids[7] = np.where(pids[3] >= 0, pids[3] + (7 - 3) * t, -1)
+    live = (pids != -1).astype(np.uint8)
+    live[rng.random((p, t)) < 0.05] = 0
+    live[7] = live[3]
+    owners = rng.permutation(n_clusters)[:p].astype(np.int32)
+    owners[7] = owners[3]  # one probe slot: the same query row meets both
+    probe = np.stack([rng.permutation(n_clusters)[:np_] for _ in range(q)]).astype(np.int32)
+    q_codes, q_meta = _int8_queries(rng, q, np_, d)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = ivf_scan.split_members_int8(q, p, t, d, 128, n_sm)
+    assert np_ // plan["s"] > plan["grp"]  # several groups a split
+    _int8_run(cuda, (q_codes, q_meta, codes, scales, np.arange(p, dtype=np.int32),
+                     owners, pids, live, probe), 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kprime", [128, 16])
+def test_ivf_block_topk_int8_kernel_rows_off_16_bytes(cuda, kprime):
+    """Dim 36: rows of 36 bytes are staged and scored in 4-byte words, not
+    by 16-byte copies."""
+    _int8_run(cuda, _int8_inputs(seed=5, d=36), kprime)
+
+
+@pytest.mark.cuda
+def test_ivf_block_topk_int8_kernel_no_candidates(cuda):
+    q_codes, q_meta, codes, scales, _, _, pids, live, probe = _int8_inputs()
+    empty = torch.zeros((0,), dtype=torch.int32, device=cuda)
+    before = ops.launch_counts()["ivf_block_topk_int8"]
+    d, i = ivf_scan.ivf_block_topk_int8(
+        *[_t(a).to(cuda) for a in (q_codes, q_meta, codes, scales)], empty, empty,
+        *[_t(a).to(cuda) for a in (pids, live, probe)], kprime=32,
+    )
+    assert torch.isinf(d).all() and (i == -1).all()
+    assert ops.launch_counts()["ivf_block_topk_int8"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,n,d,nprobe,dup", [
+    (5, 1, 16, 1, False),  # one centroid
+    (13, 31, 16, 31, True),  # nprobe = N, duplicated centroids
+    (70, 4000, 128, 32, False),  # Q not a multiple of the query tile
+    (100, 4000, 128, 32, True),
+    (9, 20_000, 64, 40, True),
+    (64, 20_000, 64, 20_000 // 128, False),  # a wide nprobe
+    (11, 3000, 10, 16, True),  # dim 10: slices staged by 4-byte copies
+])
+def test_coarse_topk_kernel_query_tiles_and_ties(cuda, q, n, d, nprobe, dup):
+    """Query tiles, one centroid, nprobe = N, duplicated centroids (ties go
+    to the lower id) and dims off the 16-byte copies, against the plain
+    version."""
+    queries, cents = _coarse_inputs(q, n, d, seed=n + q, dup=dup)
+    args = (_t(queries).to(cuda), _t(cents).to(cuda))
+    before = ops.launch_counts()["coarse_topk"]
+    ki, kd = ivf_scan.coarse_topk(*args, nprobe=nprobe)
+    pi, pd = ref.coarse_topk_ref(*args, nprobe=nprobe)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["coarse_topk"] == before + 1
+    _agree(kd, ki, pd, pi)
+    if dup:
+        assert torch.equal(ki, pi)
+    assert ki.shape == (q, nprobe) and (ki >= 0).all() and (ki < n).all()
+
+
 def _churn_on(device):
     """A scripted insert / delete / update / compaction sequence through
     the port's steps on one device; returns the final state."""
@@ -618,6 +775,61 @@ def test_paged_decode_attention_many_splits(cuda):
     got = paged_attention.paged_decode_attention(*args)
     torch.cuda.synchronize()
     _paged_check(got, args, "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kvh,dh,t,nb", [
+    (3, 8, 2, 64, 64, 5),  # blocks of 64 positions
+    (2, 8, 2, 128, 128, 3),  # blocks of 128
+    (4, 8, 2, 64, 48, 6),  # blocks of 48: tiles straddle blocks
+    (3, 32, 2, 128, 16, 9),  # G = 16: H 32 over 2 KV heads
+    (2, 16, 1, 64, 64, 4),  # G = 16 and blocks of 64
+    (3, 12, 1, 32, 16, 4),  # G = 12: launches of 8 and 4 heads
+])
+def test_paged_decode_attention_large_blocks_and_groups(cuda, dtype, b, h, kvh, dh, t, nb):
+    """Pool blocks over 32 positions and GQA groups over 8 heads, which the
+    reference serves: against the plain version in float32 and the split-K
+    scheme's plain version, and one launch count a call."""
+    from repro_torch.kernels import paged_attention
+
+    q, kp, vp, tables, lengths = _paged_inputs(b, h, kvh, dh, t, nb, seed=t + h)
+    td = getattr(torch, dtype)
+    args = [_t(a).to(cuda, td) for a in (q, kp, vp)] + [_t(tables).to(cuda),
+                                                        _t(lengths).to(cuda)]
+    before = ops.launch_counts()["paged_decode_attention"]
+    got = paged_attention.paged_decode_attention(*args)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = paged_attention.plan_splits(b, kvh, h // kvh, nb, t, dh, td.itemsize, n_sm)
+    split = ref.paged_decode_attention_split_ref(*[a.cpu() for a in args], bps=plan["bps"])
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["paged_decode_attention"] == before + 1
+    assert got.dtype == td and got.shape == (b, h, dh)
+    assert (got[0] == 0).all()  # length 0 writes zeros
+    _paged_check(got, args, dtype)
+    tol = 2e-5 if dtype == "float32" else 2.0**-7
+    torch.testing.assert_close(got.float().cpu(), split.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_attention_unaligned_q(cuda, dtype):
+    """A q that is a view off a 16-byte boundary is copied once, not
+    refused."""
+    from repro_torch.kernels import paged_attention
+
+    b, h, kvh, dh, t, nb = 3, 8, 2, 64, 16, 4
+    q, kp, vp, tables, lengths = _paged_inputs(b, h, kvh, dh, t, nb, seed=9)
+    td = getattr(torch, dtype)
+    buf = torch.zeros(q.size + 1, dtype=td, device=cuda)
+    qv = buf[1:].view(b, h, dh)
+    qv.copy_(_t(q).to(cuda, td))
+    assert qv.data_ptr() % 16 and qv.is_contiguous()
+    args = [qv] + [_t(a).to(cuda, td) for a in (kp, vp)] + [_t(tables).to(cuda),
+                                                            _t(lengths).to(cuda)]
+    got = paged_attention.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    _paged_check(got, args, dtype)
 
 
 @pytest.mark.cuda
