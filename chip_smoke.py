@@ -24,9 +24,11 @@ per-chunk seeds), k-means on the first 1,280,000 rows, offline add in
 batches of 16,384, online inserts, and search batches of 64 through
 ``union_fused`` (rerank off and on), ``block_table`` and ``chain_walk``
 (``use_kernel=True``, the ``pq_adc`` kernel).  It holds the routes to each
-other and the kernel paths to the plain paths, records the PQ kernels and
-``coarse_topk`` at 160,000 lists, and ends with one delete and one update
-batch.
+other and the kernel paths to the plain paths, records the PQ kernels,
+``coarse_topk`` at 160,000 lists and ``rerank_topk`` on the path's rows of
+dim 64, counts the bank conflicts of the PQ scan's table gathers on the
+index's codes, and ends with one delete and one update batch.  Beside the re-rank records of SIFT1M it times an empty kernel on
+the re-rank's grid: the floor of such a launch.
 
 Between the main path and the churn, the ``[union]`` phase serves the
 query batches of the float32 and bfloat16 SIFT1M indexes through the
@@ -355,7 +357,7 @@ def kernel_records(indexes, queries, vmax, counts):
     logged and left out of the JSON line."""
     import torch
     from repro_torch.core import search as S
-    from repro_torch.kernels import ivf_scan, ref
+    from repro_torch.kernels import ivf_scan, launch, ref
 
     dev = indexes["float32"].device
     q = torch.as_tensor(queries[:QUERY_BATCH], device=dev)
@@ -451,6 +453,11 @@ def kernel_records(indexes, queries, vmax, counts):
         )
         if dtype != "int8":
             records.append(rec)
+    # what a launch of the re-rank's shape costs on the card by itself: an
+    # empty kernel on its grid (Q blocks of 512 threads), queued the same way
+    log("launch-floor", kernel="rerank_topk_empty", blocks=q.shape[0],
+        ms=cuda_ms(lambda: launch.run("rerank_topk", "rerank_topk_empty", dev,
+                                      q.shape[0])))
     return records
 
 
@@ -832,9 +839,42 @@ def served_ids_live(index, ids, tag: str) -> None:
           f"pq {tag}: a served id is not live")
 
 
+def gather_wavefronts(state, uc, m: int) -> dict:
+    """The bank conflicts of the PQ scan's table gathers, from this index's
+    codes: a warp scores 32 consecutive listed rows and gathers entry code_j
+    of table j for each, so lanes whose codes differ but share a bank (code
+    mod 32) are served one after another.  Returns the mean shared-memory
+    wavefronts a warp's gather takes over the live rows of the blocks some
+    query probes (1 without conflicts), and the same for codes drawn at
+    random."""
+    import torch
+
+    blocks = uc.flat_blocks.long().clamp(min=0)
+    read = (uc.probe_idx.long()[:, :, None] == uc.owners.long()[None, None, :]).any(1).any(0)
+    blocks = blocks[read]
+    ok = (state.pool_ids[blocks] != -1) & (state.pool_live[blocks] != 0)
+    codes = state.pool_payload[blocks][ok]  # [rows, M] in slot order
+    n = codes.shape[0] // 32 * 32
+
+    def waves(c):
+        c = c[:n].long().view(-1, 32, m).transpose(1, 2)  # [warps, M, lanes]
+        out = []
+        for part in c.split(4096):
+            seen = torch.zeros(part.shape[0], m, 256, dtype=torch.bool, device=c.device)
+            seen.scatter_(2, part, True)
+            out.append(seen.view(part.shape[0], m, 8, 32).sum(2).amax(2).float())
+        return float(torch.cat(out).mean())
+
+    g = torch.Generator(device=codes.device).manual_seed(0)
+    rand = torch.randint(0, 256, codes.shape, generator=g, device=codes.device)
+    return {"warp_gathers": n // 32 * m, "wavefronts_per_gather": waves(codes),
+            "random_codes": waves(rand)}
+
+
 def phase_pq(device, n_rows: int = N_PQ_ROWS, scale: float = 1.0):
     """The paper's DSSM deployment through the port's PQ path; returns the
-    JSON records of the PQ kernels and of coarse_topk at 160,000 lists.
+    JSON records of the PQ kernels, of coarse_topk at 160,000 lists and of
+    rerank_topk on the path's rows of dim 64.
     ``scale`` < 1 shrinks the config (a rehearsal on the CPU)."""
     import numpy as np
     import torch
@@ -987,6 +1027,25 @@ def phase_pq(device, n_rows: int = N_PQ_ROWS, scale: float = 1.0):
         + 4 * lut.numel() + 4 * uc.probe_idx.numel() + 8 * q.shape[0] * kp,
         cfg.pq_m * sc["member_live_rows"], counts["ivf_pq_block_topk"], atol,
         bit_exact=True,
+    ))
+    want = ivf_scan.ivf_pq_block_topk(*args, kprime=kp)
+    log("pq-gather", **gather_wavefronts(st, uc, cfg.pq_m))
+    # the re-rank as the PQ path calls it: the survivors decoded, centroid
+    # added back (core/search.py::_rerank_pq), rows of dim 64
+    loc = S._live_locs(st, want[1]).to(torch.int32).contiguous()
+    safe = loc.clamp(min=0).long()
+    owner = st.block_owner[safe // t].clamp(min=0).long()
+    recon = (st.centroids[owner] + pqmod.decode(
+        index.pq, st.pool_payload.reshape(-1, cfg.pq_m)[safe])).contiguous()
+    ones = torch.ones(loc.shape, device=device)
+    records.append(kernel_record(
+        f"rerank_topk[float32,D={cfg.dim}]", "src/repro_torch/kernels/csrc/rerank_topk.cu",
+        "src/repro/kernels/ivf_scan.py:815",
+        lambda: ivf_scan.rerank_topk(q, recon, ones, loc),
+        lambda: ref.rerank_topk_ref(q, recon, ones, loc),
+        4 * recon.numel() + 4 * ones.numel() + 4 * loc.numel() + 4 * q.numel()
+        + 8 * loc.numel(),
+        4 * recon.numel(), counts["rerank_topk[float32]"], atol,
     ))
     # pq_adc as block_table calls it: every probed chain's code rows
     probe_d, _ = S.coarse_probe(st, q, cfg.nprobe)

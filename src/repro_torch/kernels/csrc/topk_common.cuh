@@ -65,23 +65,28 @@ __device__ __forceinline__ unsigned long long warp_min(unsigned long long v) {
 // Ascending bitonic sort of n keys in shared memory, n a power of two.
 // Every thread of the block calls it, after the keys are in place and
 // visible (a __syncthreads() before the call); it returns synchronized.
+// A thread takes one compare-exchange pair (i, i + j) of a stage at a time,
+// so no thread idles on the pair's upper half.
 __device__ __forceinline__ void bitonic_sort(unsigned long long* s, int n) {
   for (int k = 2; k <= n; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const unsigned long long a = s[i], b = s[ixj];
-          const bool up = (i & k) == 0;
-          if ((a > b) == up) {
-            s[i] = b;
-            s[ixj] = a;
-          }
+      for (int p = threadIdx.x; p < (n >> 1); p += blockDim.x) {
+        const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));  // bit j clear
+        const unsigned long long a = s[i], b = s[i | j];
+        const bool up = (i & k) == 0;
+        if ((a > b) == up) {
+          s[i] = b;
+          s[i | j] = a;
         }
       }
       __syncthreads();
     }
   }
+}
+
+// the least power of two >= n (n >= 1), on the device
+__device__ __forceinline__ int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 1 << (32 - __clz(n - 1));
 }
 
 inline int next_pow2(int n) {
@@ -256,7 +261,8 @@ inline int launch_merge_sorted(const unsigned long long* partial, int Q, int S,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- the member-split scans (ivf_block_topk.cu, ivf_block_topk_int8.cu) ----
+// ---- the member-split scans (ivf_block_topk.cu, ivf_block_topk_int8.cu,
+// ivf_pq_block_topk.cu) ----
 
 constexpr int kListThreads = 256;  // list_members' block
 
@@ -264,6 +270,8 @@ constexpr int kListThreads = 256;  // list_members' block
 // list) compacted in candidate order by warp ballots into members[q][0..n),
 // their count into counts[q], and, where slots is not null, the probe slot
 // p with probe[q][p] == owner of each (probe ids are distinct: one match).
+// A thread loads the owners of 8 chunks at once, so the loads' latency is
+// paid once for 8 * 256 candidates.
 __global__ void __launch_bounds__(kListThreads)
 list_members(const int* __restrict__ owners, int C, const int* __restrict__ probe,
              int NP, int* __restrict__ members, int* __restrict__ slots,
@@ -278,30 +286,38 @@ list_members(const int* __restrict__ owners, int C, const int* __restrict__ prob
   if (threadIdx.x == 0) base_s = 0;
   __syncthreads();
   int* out = members + static_cast<size_t>(qi) * C;
-  for (int g = 0; g < C; g += kListThreads) {
-    const int c = g + threadIdx.x;
-    int ps = -1;
-    if (c < C) {
-      const int own = owners[c];
-      if (own >= 0)
+  constexpr int kOwners = 8;  // owners a thread loads at once
+  for (int g0 = 0; g0 < C; g0 += kOwners * kListThreads) {
+    int own[kOwners];
+#pragma unroll
+    for (int e = 0; e < kOwners; ++e) {
+      const int c = g0 + e * kListThreads + threadIdx.x;
+      own[e] = c < C ? owners[c] : -1;
+    }
+#pragma unroll
+    for (int e = 0; e < kOwners; ++e) {  // in candidate order
+      if (g0 + e * kListThreads >= C) break;  // uniform over the block
+      const int c = g0 + e * kListThreads + threadIdx.x;
+      int ps = -1;
+      if (own[e] >= 0)
         for (int p = 0; p < NP; ++p)
-          if (probes[p] == own) ps = p;
+          if (probes[p] == own[e]) ps = p;
+      const bool m = ps >= 0;
+      const unsigned mask = __ballot_sync(0xffffffffu, m);
+      if (lane == 0) warp_n[warp] = __popc(mask);
+      __syncthreads();
+      int off = base_s;
+      for (int w = 0; w < warp; ++w) off += warp_n[w];
+      if (m) {
+        const int at = off + __popc(mask & ((1u << lane) - 1));
+        out[at] = c;
+        if (slots != nullptr) slots[static_cast<size_t>(qi) * C + at] = ps;
+      }
+      __syncthreads();
+      if (threadIdx.x == 0)
+        for (int w = 0; w < kListThreads / 32; ++w) base_s += warp_n[w];
+      __syncthreads();
     }
-    const bool m = ps >= 0;
-    const unsigned mask = __ballot_sync(0xffffffffu, m);
-    if (lane == 0) warp_n[warp] = __popc(mask);
-    __syncthreads();
-    int off = base_s;
-    for (int w = 0; w < warp; ++w) off += warp_n[w];
-    if (m) {
-      const int at = off + __popc(mask & ((1u << lane) - 1));
-      out[at] = c;
-      if (slots != nullptr) slots[static_cast<size_t>(qi) * C + at] = ps;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0)
-      for (int w = 0; w < kListThreads / 32; ++w) base_s += warp_n[w];
-    __syncthreads();
   }
   if (threadIdx.x == 0) counts[qi] = base_s;
 }
@@ -339,7 +355,13 @@ __device__ __forceinline__ void list_live_slots(const int* gblk, int n_blk, int 
       const int jj = x / T_m;
       blk[k] = jj;
       slot[k] = x < n_slots ? gblk[jj] * T_m + (x - jj * T_m) : 0;
-      ok[k] = x < n_slots && pool_ids[slot[k]] != -1 && pool_live[slot[k]] != 0;
+      int id = -1;  // the id and live byte of a slot load together
+      uint8_t live = 0;
+      if (x < n_slots) {
+        id = pool_ids[slot[k]];
+        live = pool_live[slot[k]];
+      }
+      ok[k] = id != -1 && live != 0;
     }
 #pragma unroll
     for (int k = 0; k < kLoads; ++k) {
@@ -352,15 +374,106 @@ __device__ __forceinline__ void list_live_slots(const int* gblk, int n_blk, int 
   }
 }
 
+// Sort a[0..n) in runs of 32 keys, a warp a run, in registers: a bitonic
+// network over the lanes by shuffles, no barrier.  The last run is padded
+// with EMPTY_KEY, written back too.  The caller's barrier makes the runs
+// visible.
+__device__ __forceinline__ void sort_runs32(unsigned long long* a, int n) {
+  const int lane = threadIdx.x & 31;
+  for (int run = threadIdx.x >> 5; run * 32 < n; run += blockDim.x >> 5) {
+    const int at = run * 32 + lane;
+    unsigned long long x = at < n ? a[at] : EMPTY_KEY;
+#pragma unroll
+    for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+      for (int j = k >> 1; j > 0; j >>= 1) {
+        const unsigned long long y = __shfl_xor_sync(0xffffffffu, x, j);
+        const bool keep_min = ((lane & j) == 0) == ((lane & k) == 0);
+        x = keep_min ? (y < x ? y : x) : (y < x ? x : y);
+      }
+    }
+    a[at] = x;
+  }
+}
+
+// The keys of a sorted run of 32 below x (at or below it, with le).
+__device__ __forceinline__ int count_in_run32(const unsigned long long* run,
+                                              unsigned long long x, bool le) {
+  int lo = 0;
+#pragma unroll
+  for (int s = 32; s > 0; s >>= 1)
+    if (lo + s <= 32 && (le ? run[lo + s - 1] <= x : run[lo + s - 1] < x)) lo += s;
+  return lo;
+}
+
+// The keys of sorted a[0..n) at or below x.
+__device__ __forceinline__ int count_at_or_below(const unsigned long long* a, int n,
+                                                 unsigned long long x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] <= x)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+constexpr int kRankKeys = 4;   // keys a thread places in merge_area
+constexpr int kRankRuns = 16;  // area runs merge_area ranks against, at most
+
 // Threshold selection: keys[0..K) hold the sorted top-K so far, keys[K..seg)
-// a candidate area that takes a key only below the K'-th best (*thr).  Sort
-// the top-K and the area together (seg keys, a power of two), empty the
-// area, and take the new K-th best as the threshold.  Called by every
-// thread after a barrier; returns synchronized.
+// a candidate area that takes a key only below the K'-th best (*thr): its
+// c = *cnt keys first, EMPTY_KEY after them, so no area key equals a top key
+// or EMPTY_KEY.  Merge the area into the top-K, empty it, and take the new
+// K-th best as the threshold.  Where the area is at most kRankRuns runs of
+// 32 and the K + c keys at most kRankKeys a thread, the area is sorted in
+// runs by warps (sort_runs32) and each key placed at its rank: its place in
+// its own run (or in the top) plus the keys below it in every other run and
+// (for an area key) the top keys below it, by binary searches; three
+// barriers in all.  Else the top and the area are sorted together
+// (bitonic, a barrier a stage).  Called by every thread after a barrier;
+// returns synchronized.
 __device__ __forceinline__ void merge_area(unsigned long long* keys, int seg, int K,
                                            int* cnt, unsigned long long* thr) {
-  bitonic_sort(keys, seg);
-  for (int i = K + threadIdx.x; i < seg; i += blockDim.x) keys[i] = EMPTY_KEY;
+  const int c = *cnt;
+  const int runs = (c + 31) >> 5;
+  unsigned long long* area = keys + K;
+  if (runs <= kRankRuns && K + 32 * runs <= seg &&
+      K + c <= kRankKeys * static_cast<int>(blockDim.x)) {
+    sort_runs32(area, c);
+    __syncthreads();
+    unsigned long long x[kRankKeys];
+    int rank[kRankKeys];
+#pragma unroll
+    for (int e = 0; e < kRankKeys; ++e) {
+      const int i = threadIdx.x + e * blockDim.x;  // top, then area
+      x[e] = 0;
+      rank[e] = K;  // unplaced
+      if (i < K) {
+        x[e] = keys[i];
+        rank[e] = i;
+        for (int r = 0; r < runs; ++r) rank[e] += count_in_run32(area + 32 * r, x[e], false);
+      } else if (i < K + c) {
+        const int j = i - K, a = j >> 5;
+        x[e] = area[j];
+        rank[e] = (j & 31) + count_at_or_below(keys, K, x[e]);
+        for (int r = 0; r < runs; ++r)
+          if (r != a) rank[e] += count_in_run32(area + 32 * r, x[e], false);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < kRankKeys; ++e)
+      if (rank[e] < K) keys[rank[e]] = x[e];
+    for (int i = K + threadIdx.x; i < K + 32 * runs; i += blockDim.x) keys[i] = EMPTY_KEY;
+  } else {
+    const int n = min(seg, pow2_at_least(K + c));
+    bitonic_sort(keys, n);
+    for (int i = K + threadIdx.x; i < n; i += blockDim.x) keys[i] = EMPTY_KEY;
+  }
+  __syncthreads();
   if (threadIdx.x == 0) {
     *thr = keys[K - 1];
     *cnt = 0;

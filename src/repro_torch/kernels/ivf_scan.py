@@ -177,17 +177,6 @@ def ivf_block_scan(
     return out
 
 
-def split_candidates(c: int, q: int, kprime: int, n_sm: int) -> tuple[int, int]:
-    """(S, chunk): how pass 1 of the PQ scan cuts C candidates into
-    S chunks: about four blocks per SM over the Q x S grid, while pass 2's
-    S*K' keys fit in shared memory as a power of two."""
-    keys_max = _next_pow2(launch.SMEM_LIMIT // 8 + 1) // 2  # largest power of two
-    s_max = max(1, keys_max // _next_pow2(kprime))
-    s = max(1, min(c, -(-4 * n_sm // max(q, 1)), s_max))
-    chunk = -(-c // s)
-    return -(-c // chunk), chunk
-
-
 # csrc/ivf_block_topk.cu: bytes of a staged tile of rows, tiles in flight
 # (a ring of 2-4), the slots a list of occupied rows holds
 TOPK_TILE_BYTES, TOPK_STAGES, TOPK_LIST = 16384, 2, 4096
@@ -253,6 +242,52 @@ def split_members_int8(q: int, c: int, t: int, d: int, kprime: int,
             + grp * 12)
     return {"s": _member_splits(q, c, kprime, smem, n_sm), "rows": rows,
             "ns": TOPK_STAGES, "list": lst, "grp": grp, "seg": seg, "smem": smem}
+
+
+# csrc/ivf_pq_block_topk.cu: bytes of a staged tile of code rows, the slots
+# a list holds, and the threads of a block.  At the DSSM deployment (M 16,
+# T 1024, K' 128) two 16 KB tables, tiles of 256 rows, 1024 keys and a
+# one-block list make 53 KB a block: four blocks an SM, eight splits a
+# query of 64
+PQ_TILE_BYTES, PQ_LIST, PQ_THREADS = 4096, 1024, 256
+
+
+def _pq_smem(m: int, seg: int, nt: int, ns: int, rows: int, lst: int,
+             grp: int) -> int:
+    """Shared memory of a pass-1 block of the PQ scan: seg keys, nt [M, 256]
+    float32 tables, ns tiles of ``rows`` code rows (padded to 16 bytes), a
+    list of ``lst`` slots and ``grp`` block ids."""
+    return 8 * seg + nt * 1024 * m + ((ns * rows * m + 15) & ~15) + 4 * (lst + grp)
+
+
+def split_members_pq(q: int, c: int, t: int, m: int, kprime: int,
+                     n_sm: int) -> dict[str, int]:
+    """How pass 1 of ``ivf_pq_block_topk`` splits each query's member
+    blocks: ``split_members`` with the PQ scan's tile and list sizes
+    (PQ_TILE_BYTES, PQ_LIST; rows of M bytes), groups of at most ``grp``
+    member blocks of one probe slot, and ``nt`` staged tables.  Two tables
+    (the next group's loading while one is read) where they fit; else one;
+    where not even one fits beside the keys, a one-block list, one tile of
+    fewer rows (``ns`` 1, down to one row with an area of one tile), and
+    then the tables read from device memory (``nt`` 0): so every shape whose
+    keys fit is served.  ``smem`` above ``launch.SMEM_LIMIT`` means no plan
+    fits."""
+    rows, lst, seg = _member_tiles(t, m, kprime, PQ_TILE_BYTES, PQ_LIST)
+    plans = [(nt, TOPK_STAGES, rows, lst, seg) for nt in (2, 1)]
+    for nt in (1, 0):
+        r = rows
+        while r >= 1:
+            plans += [(nt, 1, r, t, _next_pow2(kprime + 2 * r)),
+                      (nt, 1, r, t, _next_pow2(kprime + r))]
+            r //= 2
+    for nt, ns, rows, lst, seg in plans:
+        grp = min(lst // t, PQ_THREADS)  # a thread holds each block id
+        smem = _pq_smem(m, seg, nt, ns, rows, lst, grp)
+        if smem <= launch.SMEM_LIMIT:
+            break
+    return {"s": _member_splits(q, c, kprime, smem, n_sm), "rows": rows,
+            "ns": ns, "nt": nt, "list": lst, "grp": grp, "seg": seg,
+            "smem": smem}
 
 
 def ivf_block_topk(
@@ -326,16 +361,20 @@ def rerank_topk(
     launch.check("rows", rows, tuple(_SUFFIX), (q, kp, d))
     launch.check("scales", scales, (torch.float32,), (q, kp))
     launch.check("loc", loc, (torch.int32,), (q, kp))
-    if _next_pow2(kp) * 8 + d * 4 > launch.SMEM_LIMIT:
+    if _next_pow2(kp) * 8 > launch.SMEM_LIMIT:
         raise ValueError(f"rerank_topk: K' = {kp} keys exceed shared memory")
     dev = queries.device
+    # 16-byte loads where a row's values fill whole units (csrc/rerank_topk.cu)
+    vec = ((d * rows.element_size()) % 16 == 0 and rows.data_ptr() % 16 == 0
+           and queries.data_ptr() % 16 == 0)
     out_d = torch.empty((q, kp), dtype=torch.float32, device=dev)
     out_i = torch.empty((q, kp), dtype=torch.int32, device=dev)
     if q == 0 or kp == 0:
         return out_d, out_i
     launch.run("rerank_topk", f"rerank_topk_{_SUFFIX[rows.dtype]}", dev,
                queries.data_ptr(), rows.data_ptr(), scales.data_ptr(),
-               loc.data_ptr(), q, kp, d, out_d.data_ptr(), out_i.data_ptr())
+               loc.data_ptr(), q, kp, d, int(vec), out_d.data_ptr(),
+               out_i.data_ptr())
     LAUNCHES[f"rerank_topk[{_DTYPE_NAME[rows.dtype]}]"] += 1
     return out_d, out_i
 
@@ -451,25 +490,39 @@ def ivf_pq_block_topk(
     launch.check("probe_idx", probe_idx, (torch.int32,), (q, npr))
     if kprime <= 0:
         raise ValueError(f"kprime must be positive, got {kprime}")
-    if _next_pow2(kprime + t) * 8 + (m * 256 + npr) * 4 > launch.SMEM_LIMIT:
-        raise ValueError(
-            f"ivf_pq_block_topk sorts K'+T = {kprime + t} keys beside an "
-            f"[{m}, 256] table in shared memory; that exceeds {launch.SMEM_LIMIT} bytes"
-        )
     dev = lut.device
+    plan = split_members_pq(q, c, t, m, kprime, launch.sm_count(dev))
+    if plan["smem"] > launch.SMEM_LIMIT or npr * 4 > launch.SMEM_LIMIT:
+        raise ValueError(
+            f"ivf_pq_block_topk: K' = {kprime}, T = {t}, M = {m} and nprobe "
+            f"{npr} need more than {launch.SMEM_LIMIT} bytes of shared memory"
+        )
     if c == 0 or q == 0:  # no candidate: nothing to launch
         return (
             torch.full((q, kprime), float("inf"), device=dev),
             torch.full((q, kprime), -1, dtype=torch.int32, device=dev),
         )
-    s, chunk = split_candidates(c, q, kprime, launch.sm_count(dev))
-    partial = torch.empty((q, s, kprime), dtype=torch.int64, device=dev)
+    if q > 2**31 - 1 or plan["s"] > 65535:
+        raise ValueError(f"ivf_pq_block_topk: grid ({q}, {plan['s']}) too large")
+    # code rows staged by 16-, 4- or 1-byte units; tables by 16-byte copies
+    ptr = pool_codes.data_ptr()
+    ub = (16 if m % 16 == 0 and ptr % 16 == 0
+          else 4 if m % 4 == 0 and ptr % 4 == 0 else 1)
+    if lut.data_ptr() % 16:
+        lut = lut.clone()
+    members = torch.empty((2 * q * c + q,), dtype=torch.int32, device=dev)
+    mslots = members[q * c : 2 * q * c]  # [Q, C] probe slot of each member
+    counts = members[2 * q * c :]  # [Q] members of each query
+    partial = torch.empty((q, plan["s"], kprime), dtype=torch.int64, device=dev)
     out_d = torch.empty((q, kprime), dtype=torch.float32, device=dev)
     out_i = torch.empty((q, kprime), dtype=torch.int32, device=dev)
     launch.run("ivf_pq_block_topk", "ivf_pq_block_topk", dev, lut.data_ptr(),
                pool_codes.data_ptr(), t, m, block_ids.data_ptr(),
-               block_owners.data_ptr(), c, chunk, s, pool_ids.data_ptr(),
+               block_owners.data_ptr(), c, plan["s"], pool_ids.data_ptr(),
                pool_live.data_ptr(), probe_idx.data_ptr(), q, npr, kprime,
-               partial.data_ptr(), out_d.data_ptr(), out_i.data_ptr())
+               plan["rows"], plan["list"], plan["grp"], plan["seg"], plan["ns"],
+               plan["nt"], ub, members.data_ptr(), mslots.data_ptr(),
+               counts.data_ptr(), partial.data_ptr(), out_d.data_ptr(),
+               out_i.data_ptr())
     LAUNCHES["ivf_pq_block_topk"] += 1
     return out_d, out_i

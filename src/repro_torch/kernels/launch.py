@@ -32,12 +32,14 @@ SIGNATURES = {
     "ivf_block_topk_f32": [_P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _I,
                            _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                            _P],
-    "rerank_topk_f32": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "rerank_topk_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "rerank_topk_empty": [_I, _P],
     "ivf_block_topk_int8": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P,
                             _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                             _P, _P, _P, _P, _P],
-    "ivf_pq_block_topk": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _I,
-                          _I, _I, _P, _P, _P, _P],
+    "ivf_pq_block_topk": [_P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                          _P, _P],
     "pq_adc_f32": [_P, _P, _I, _I, _I, _P, _P],
     "paged_decode_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _I, _I, ctypes.c_float, _P,

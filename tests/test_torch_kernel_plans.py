@@ -2,7 +2,8 @@
 the paged attention's split-K merge.
 
 The planners (``paged_attention.plan_splits``, ``ivf_scan.split_members``,
-``ivf_scan.split_members_int8``, ``ivf_scan.split_centroids``) run on the
+``ivf_scan.split_members_int8``, ``ivf_scan.split_members_pq``,
+``ivf_scan.split_centroids``) run on the
 host, so their plans are checked here on the CPU at the shapes the port
 serves: llama3-8b's [serve] (16 x 576 positions) and [decode_32k] (32,768
 positions), pool blocks over 32 positions and GQA groups over 8 heads, and
@@ -255,6 +256,66 @@ def test_split_members_int8_covers_every_member_once(q, c, t, d, kprime):
                     seen[cand] = seen.get(cand, 0) + 1
                     assert probe[qi, slot] == owners[cand]
                     assert int(want[qi, cand]) == slot
+        members = set(int(x) for x in torch.nonzero(want[qi] >= 0).flatten())
+        assert set(seen) == members and all(v == 1 for v in seen.values())
+
+
+@pytest.mark.parametrize("q,c,t,m,kprime,npr,nt", [
+    (64, 2503, 1024, 16, 128, 32, 2),  # the DSSM deployment
+    (8, 5, 16, 8, 128, 4, 2),  # the card tests' hand-made pool, M = 8
+    (9, 60, 1024, 16, 128, 8, 2),
+    (5, 40, 64, 12, 37, 6, 2),  # M off 16: rows staged by 4-byte loads
+    (4, 30, 1024, 200, 128, 4, 1),  # one table: two would not fit
+    (3, 12, 16, 225, 100, 3, 1),  # one table, one-row tiles
+    (2, 6, 4096, 150, 4096, 2, 0),  # no table fits: read from device memory
+])
+def test_split_members_pq_covers_every_member_once(q, c, t, m, kprime, npr, nt):
+    """Pass 1 of ``ivf_pq_block_topk`` gives split i of a query with n
+    members the members [n*i // S, n*(i+1) // S), in groups of at most
+    ``grp`` consecutive blocks of one probe slot, each scored with the
+    table of that slot: every (query, member) pair is scored once, against
+    the probe slot whose cluster owns it (the plain version's
+    ``_pslot_from_owners``).  Shared memory stays within the limit, with two
+    tables where they fit, one near the limit the first design's wrapper
+    took (``_next_pow2(K' + T) * 8 + (M * 256 + NP) * 4`` bytes), and none
+    beyond it."""
+    assert (ivf_scan._next_pow2(kprime + t) * 8 + (m * 256 + npr) * 4
+            <= launch.SMEM_LIMIT)  # a shape the first design took
+    plan = ivf_scan.split_members_pq(q, c, t, m, kprime, N_SM)
+    s, grp, rows, seg = plan["s"], plan["grp"], plan["rows"], plan["seg"]
+    assert plan["nt"] == nt
+    assert plan["smem"] == ivf_scan._pq_smem(m, seg, nt, plan["ns"], rows,
+                                              plan["list"], grp)
+    assert 1 <= s <= c and plan["smem"] <= launch.SMEM_LIMIT
+    assert s == 1 or (s + 1) * kprime * 8 <= launch.SMEM_LIMIT  # pass 2's runs
+    assert seg & (seg - 1) == 0 and seg - kprime >= rows
+    assert rows & (rows - 1) == 0 and 1 <= plan["ns"] <= 4
+    assert 1 <= grp <= ivf_scan.PQ_THREADS and grp * t <= plan["list"]
+    if nt == 2:  # the default tiles, with an area of two
+        assert (rows, seg) == ivf_scan._member_tiles(t, m, kprime, ivf_scan.PQ_TILE_BYTES,
+                                                     ivf_scan.PQ_LIST)[::2]
+    if (q, c, t, m) == (64, 2503, 1024, 16):  # four blocks an SM, one wave
+        assert plan["smem"] + 1024 <= launch.SM_SHARED // 4 and s * q <= 4 * N_SM
+    rng = np.random.default_rng(c + q + m)
+    ncl = max(npr + 1, c // 2)
+    owners = rng.integers(0, ncl, c).astype(np.int32)
+    owners[rng.random(c) < 0.2] = -1  # holes: NULL owners
+    probe = np.stack([rng.permutation(ncl)[:npr] for _ in range(q)]).astype(np.int32)
+    want = ref._pslot_from_owners(torch.from_numpy(probe), torch.from_numpy(owners))
+    for qi, mem in enumerate(_members(owners, probe)):
+        n, seen = len(mem), {}
+        for i in range(s):
+            lo, hi = n * i // s, n * (i + 1) // s
+            g0 = lo
+            while g0 < hi:  # a group: a run of one slot, at most grp blocks
+                g1 = g0 + 1
+                while g1 < hi and g1 - g0 < grp and mem[g1][1] == mem[g0][1]:
+                    g1 += 1
+                for cand, slot in mem[g0:g1]:
+                    seen[cand] = seen.get(cand, 0) + 1
+                    assert slot == mem[g0][1] and probe[qi, slot] == owners[cand]
+                    assert int(want[qi, cand]) == slot
+                g0 = g1
         members = set(int(x) for x in torch.nonzero(want[qi] >= 0).flatten())
         assert set(seen) == members and all(v == 1 for v in seen.values())
 

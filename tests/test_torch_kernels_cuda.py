@@ -596,7 +596,7 @@ def test_ivf_pq_block_topk_kernel_matches_plain(cuda, ties, kprime):
 def test_ivf_pq_block_topk_kernel_many_candidates(cuda):
     """The DSSM deployment's widths (M = 16, T = 1024), quarter-full
     blocks, exact ties across blocks, and enough candidates that pass 1
-    splits them into several chunks."""
+    splits each query's members over several blocks."""
     lut, codes, ids, owners, pids, live, probe = _pq_inputs(
         seed=4, q=9, npb=8, m=16, p=60, t=1024, c=60, ncl=24)
     ids = np.arange(60, dtype=np.int32)  # ascending, as the union gives them
@@ -605,11 +605,239 @@ def test_ivf_pq_block_topk_kernel_many_candidates(cuda):
     pids[:, 256:] = -1
     args = [_t(a).to(cuda) for a in (lut, codes, ids, owners, pids, live, probe)]
     n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert ivf_scan.split_candidates(60, 9, 128, n_sm)[0] > 1
+    assert ivf_scan.split_members_pq(9, 60, 1024, 16, 128, n_sm)["s"] > 1
     kd, ki = ivf_scan.ivf_pq_block_topk(*args, kprime=128)
     pd, pi = ref.ivf_pq_block_topk_ref(*args, kprime=128)
     torch.cuda.synchronize()
     assert torch.equal(ki, pi) and torch.equal(kd, pd)
+
+
+def _pq_run(cuda, args, kprime, plan=None):
+    """The PQ kernel against its plain version: the same bits (both add the
+    M table entries in the order j = 0..M-1).  ``plan``: fields the
+    wrapper's plan must have at these shapes."""
+    lut, codes, ids, owners, pids, live, probe = [
+        a if isinstance(a, torch.Tensor) else _t(a).to(cuda) for a in args]
+    if plan:
+        n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+        got = ivf_scan.split_members_pq(lut.shape[0], ids.shape[0], codes.shape[1],
+                                        codes.shape[2], kprime, n_sm)
+        assert {k: got[k] for k in plan} == plan, got
+    before = ops.launch_counts()["ivf_pq_block_topk"]
+    kd, ki = ivf_scan.ivf_pq_block_topk(lut, codes, ids, owners, pids, live, probe,
+                                        kprime=kprime)
+    pd, pi = ref.ivf_pq_block_topk_ref(lut, codes, ids, owners, pids, live, probe,
+                                       kprime=kprime)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ivf_pq_block_topk"] == before + 1
+    assert torch.equal(ki, pi) and torch.equal(kd, pd)
+    return kd, ki
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kprime", [300, 16])
+def test_ivf_pq_block_topk_kernel_occupancy_cases(cuda, kprime):
+    """Member blocks with no occupied slot, every slot occupied and live,
+    tombstones, every slot tombstoned, one live row; K' above a query's
+    live rows; a query whose probes own no candidate (all (inf, -1))."""
+    rng = np.random.default_rng(31)
+    q, npb, m, p, t = 5, 2, 16, 8, 64
+    lut = (rng.normal(size=(q, npb, m, 256)) ** 2).astype(np.float32)
+    codes = rng.integers(0, 256, (p, t, m)).astype(np.uint8)
+    pids = np.arange(p * t, dtype=np.int32).reshape(p, t)
+    pids[0] = -1  # no occupied slot
+    pids[2, 20:] = -1
+    pids[3, 5:] = -1
+    live = (pids != -1).astype(np.uint8)  # block 1: every slot live
+    live[2, ::3] = 0  # tombstones keep their stale id
+    live[4] = 0  # every slot tombstoned
+    live[5] = 0
+    live[5, 17] = 1  # one live row
+    owners = np.array([0, 0, 1, 1, 2, 2, 3, 3], np.int32)
+    probe = np.array([[0, 1], [1, 2], [0, 3], [2, 3], [7, 8]], np.int32)
+    kd, ki = _pq_run(cuda, (lut, codes, np.arange(p, dtype=np.int32), owners,
+                            pids, live, probe), kprime)
+    assert torch.isinf(kd[4]).all() and (ki[4] == -1).all()
+    got = ki.cpu().numpy()
+    assert (live.reshape(-1)[got[got >= 0]] == 1).all()
+    if kprime == 300:  # fewer live rows than K': the rest is (inf, -1)
+        assert (ki[3] == -1).sum() == kprime - live[4:].sum()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 16, 12, 7, 32])
+def test_ivf_pq_block_topk_kernel_chains_and_widths(cuda, m):
+    """Lists whose chains span three blocks, side by side in the candidate
+    list (a group of blocks under one staged table) or spread over it, rows
+    of M = 8, 12, 7 bytes (4- and 1-byte staging) and of 16 and 32 (16-byte
+    cp.async), and enough member blocks that each query's are split."""
+    rng = np.random.default_rng(40 + m)
+    q, npb, p, t, ncl = 12, 6, 48, 128, 16
+    lut = (rng.normal(size=(q, npb, m, 256)) ** 2).astype(np.float32)
+    codes = rng.integers(0, 256, (p, t, m)).astype(np.uint8)
+    pids = np.arange(p * t, dtype=np.int32).reshape(p, t)
+    fill = rng.integers(0, t + 1, p)
+    for b in range(p):
+        pids[b, fill[b]:] = -1
+    live = (pids != -1).astype(np.uint8)
+    live[rng.random((p, t)) < 0.1] = 0
+    owners = np.concatenate([np.arange(24) // 3,  # lists 0-7: adjacent chains
+                             8 + np.arange(24) % 8]).astype(np.int32)  # 8-15: spread
+    probe = np.stack([rng.permutation(ncl)[:npb] for _ in range(q)]).astype(np.int32)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ivf_scan.split_members_pq(q, p, t, m, 128, n_sm)["s"] > 1
+    args = (lut, codes, np.arange(p, dtype=np.int32), owners, pids, live, probe)
+    before = ops.launch_counts()["ivf_pq_block_topk"]
+    for kprime in (128, 37):
+        _pq_run(cuda, args, kprime)
+    assert ops.launch_counts()["ivf_pq_block_topk"] == before + 2
+
+
+@pytest.mark.cuda
+def test_ivf_pq_block_topk_kernel_unaligned_views(cuda):
+    """A pool view one byte off its allocation (rows staged a byte at a
+    time) and a table view one float off (cloned once, the tables are
+    staged by 16-byte copies)."""
+    lut, codes, ids, owners, pids, live, probe = _pq_inputs(seed=6, m=16)
+    flat = torch.zeros(codes.size + 1, dtype=torch.uint8, device=cuda)
+    pool = flat[1:].view(codes.shape)
+    pool.copy_(_t(codes).to(cuda))
+    assert pool.data_ptr() % 16 and pool.is_contiguous()
+    flat_lut = torch.zeros(lut.size + 1, dtype=torch.float32, device=cuda)
+    tables = flat_lut[1:].view(lut.shape)
+    tables.copy_(_t(lut).to(cuda))
+    assert tables.data_ptr() % 16
+    args = [tables, pool] + [_t(a).to(cuda) for a in (ids, owners, pids, live, probe)]
+    for kprime in (128, 16):
+        _pq_run(cuda, args, kprime)
+
+
+@pytest.mark.cuda
+def test_ivf_pq_block_topk_kernel_ties_across_splits(cuda):
+    """Every member block holds the same codes and every probe slot the same
+    table, so each score occurs once per block, and the ties at the K'-th
+    place span blocks that different blocks of pass 1 score: the lowest
+    locations must win, as in the plain version's two-key sort."""
+    rng = np.random.default_rng(32)
+    q, npb, m, p, t, ncl = 2, 3, 16, 24, 64, 6
+    lut = (rng.normal(size=(q, 1, m, 256)) ** 2).astype(np.float32)
+    lut = np.broadcast_to(lut, (q, npb, m, 256)).copy()
+    codes = np.broadcast_to(rng.integers(0, 256, (1, t, m)), (p, t, m)).astype(np.uint8).copy()
+    pids = np.arange(p * t, dtype=np.int32).reshape(p, t)
+    pids[:, 40:] = -1  # 40 occupied slots a block
+    live = (pids != -1).astype(np.uint8)
+    owners = (np.arange(p) % ncl).astype(np.int32)
+    probe = np.array([[0, 1, 2], [3, 4, 5]], np.int32)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ivf_scan.split_members_pq(q, p, t, m, 100, n_sm)["s"] > 1
+    args = (lut, codes, np.arange(p, dtype=np.int32), owners, pids, live, probe)
+    for kprime in (100, 37):  # 12 member blocks x 40 rows, ties at the K'-th
+        kd, ki = _pq_run(cuda, args, kprime)
+        assert (ki >= 0).all()
+        # equal distances come back in location order
+        same = kd[:, 1:] == kd[:, :-1]
+        assert same.any() and (ki[:, 1:][same] > ki[:, :-1][same]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,npb,m,p,t,kprime,nt", [
+    (4, 3, 200, 6, 1024, 128, 1),  # one staged table: two do not fit
+    (2, 2, 150, 4, 4096, 4096, 0),  # no table fits beside 8192 keys
+])
+def test_ivf_pq_block_topk_kernel_table_fallbacks(cuda, q, npb, m, p, t, kprime, nt):
+    """Shapes the first design's wrapper took whose tables do not fit in
+    pairs (nt 1) or at all (nt 0, gathered from device memory)."""
+    rng = np.random.default_rng(33 + nt)
+    lut = (rng.normal(size=(q, npb, m, 256)) ** 2).astype(np.float32)
+    codes = rng.integers(0, 256, (p, t, m)).astype(np.uint8)
+    pids = np.arange(p * t, dtype=np.int32).reshape(p, t)
+    pids[:, 3 * t // 4 :] = -1
+    live = (pids != -1).astype(np.uint8)
+    live[rng.random((p, t)) < 0.1] = 0
+    owners = (np.arange(p) % (npb + 1)).astype(np.int32)
+    probe = np.stack([rng.permutation(npb + 1)[:npb] for _ in range(q)]).astype(np.int32)
+    _pq_run(cuda, (lut, codes, np.arange(p, dtype=np.int32), owners, pids, live, probe),
+            kprime, plan={"nt": nt})
+
+
+def _rerank_inputs(rng, dtype, q, kp, d, ties=False):
+    """Survivor rows of each dtype with a fifth of the locations -1; with
+    ``ties``, small integer rows repeated in each query (every distance
+    exact in any order of sums), so equal distances meet."""
+    if ties:
+        queries = rng.integers(-3, 4, (q, d)).astype(np.float32)
+        base = rng.integers(-3, 4, (q, kp // 4 + 1, d))
+        rows = base[:, rng.integers(0, kp // 4 + 1, kp)]
+        scales = np.ones((q, kp), np.float32)
+        rows = _t(np.ascontiguousarray(rows, np.int8 if dtype == "int8" else np.float32))
+    else:
+        queries = rng.normal(size=(q, d)).astype(np.float32)
+        if dtype == "int8":
+            rows = _t(rng.integers(-127, 128, (q, kp, d)).astype(np.int8))
+            scales = rng.uniform(0.01, 0.05, (q, kp)).astype(np.float32)
+        else:
+            rows = _t(rng.normal(size=(q, kp, d)).astype(np.float32))
+            scales = np.ones((q, kp), np.float32)
+    if dtype != "int8":
+        rows = rows.to(getattr(torch, dtype))
+    loc = rng.permutation(q * kp).reshape(q, kp).astype(np.int32)
+    loc[rng.random((q, kp)) < 0.2] = -1
+    return [_t(queries), rows, _t(scales), _t(loc)]
+
+
+def _rerank_run(cuda, args, exact=False):
+    name = f"rerank_topk[{args[1].dtype}".replace("torch.", "") + "]"
+    before = ops.launch_counts()[name]
+    kd, ki = ivf_scan.rerank_topk(*args)
+    pd, pi = ref.rerank_topk_ref(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[name] == before + 1
+    _agree(kd, ki, pd, pi)
+    if exact:  # exact distances: ties by location, the same bits
+        assert torch.equal(ki, pi) and torch.equal(kd, pd)
+    valid = (args[3] != -1).sum(1)
+    assert ((ki != -1).sum(1) == valid).all()
+    return kd, ki
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("kp", [100, 128, 256])
+@pytest.mark.parametrize("d", [64, 96, 128])
+def test_rerank_topk_kernel_widths(cuda, dtype, kp, d):
+    """K' off and on powers of two, rows of 64, 96 and 128 values (lanes a
+    row: 16/24/32 of 32 in float32, 8/12/16 in bfloat16, 4/6/8 in int8),
+    locations of -1, within the tie rule; then exact ties."""
+    rng = np.random.default_rng(kp + d)
+    _rerank_run(cuda, [a.to(cuda) for a in _rerank_inputs(rng, dtype, 7, kp, d)])
+    _rerank_run(cuda, [a.to(cuda) for a in _rerank_inputs(rng, dtype, 7, kp, d, ties=True)],
+                exact=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("kp,d", [(128, 10), (37, 36), (1500, 16), (1, 128)])
+def test_rerank_topk_kernel_scalar_path_and_long_lists(cuda, dtype, kp, d):
+    """Rows whose bytes do not fill 16-byte units (the scalar path: dim 10;
+    dim 36 in bfloat16 and int8, where float32 rows are 9 units a row), a K'
+    above the rank merge's (a bitonic sort in shared memory) and a K' of
+    one."""
+    rng = np.random.default_rng(kp * d)
+    for ties in (False, True):
+        args = [a.to(cuda) for a in _rerank_inputs(rng, dtype, 5, kp, d, ties=ties)]
+        _rerank_run(cuda, args, exact=ties)
+
+
+@pytest.mark.cuda
+def test_rerank_topk_kernel_unaligned_rows(cuda):
+    """Rows one float off a 16-byte boundary take the scalar path."""
+    rng = np.random.default_rng(9)
+    queries, rows, scales, loc = _rerank_inputs(rng, "float32", 6, 128, 128)
+    flat = torch.zeros(rows.numel() + 1, device=cuda)
+    view = flat[1:].view(rows.shape)
+    view.copy_(rows.to(cuda))
+    assert view.data_ptr() % 16
+    _rerank_run(cuda, [queries.to(cuda), view, scales.to(cuda), loc.to(cuda)])
 
 
 @pytest.mark.cuda
