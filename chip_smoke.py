@@ -24,7 +24,8 @@ per-chunk seeds), k-means on the first 1,280,000 rows, offline add in
 batches of 16,384, online inserts, and search batches of 64 through
 ``union_fused`` (rerank off and on), ``block_table`` and ``chain_walk``
 (``use_kernel=True``, the ``pq_adc`` kernel).  It holds the routes to each
-other and the kernel paths to the plain paths, records the PQ kernels,
+other and the kernel paths to the plain paths, records the PQ kernels
+(``pq_adc`` at ``block_table``'s and ``chain_walk``'s shapes),
 ``coarse_topk`` at 160,000 lists and ``rerank_topk`` on the path's rows of
 dim 64, counts the bank conflicts of the PQ scan's table gathers on the
 index's codes, and ends with one delete and one update batch.  Beside the re-rank records of SIFT1M it times an empty kernel on
@@ -34,7 +35,9 @@ Between the main path and the churn, the ``[union]`` phase serves the
 query batches of the float32 and bfloat16 SIFT1M indexes through the
 comparison paths ``union`` (plain versions) and ``union_pallas``
 (``coarse_topk`` + ``ivf_block_scan``) beside ``union_fused``: ids equal
-under the tie rule, same recall@10, ms per batch side by side.  Last, the
+under the tie rule, same recall@10, ms per batch side by side; then the
+``ivf_block_scan`` records, each beside one cuBLAS ``baddbmm`` on a
+gathered copy as its library yardstick.  Last, the
 ``[lm]`` phase serves llama3-8b at full width and depth (8.03 B bf16
 weights drawn on the card) through the paged-KV decode: 16 sequences of
 a 512-token prompt fed one token per step (the card synchronised around
@@ -603,8 +606,30 @@ def phase_union(indexes, queries, truth, vmax) -> list:
         log("candidates", dtype=dtype, path="union_pallas", C=c, queries=q.shape[0],
             T=t, scores_gb=round(4 * c * q.shape[0] * t / 1e9, 3))
         args = (q, st.pool_payload, uc.flat_blocks)
-        # no single PyTorch call gathers the blocks and returns squared L2
-        # (torch.cdist needs the gathered copy and returns the root): null
+        # the yardstick: one cuBLAS baddbmm (no TF32; bf16 products summed
+        # in float32) of the query, rounded to the payload type, against an
+        # already gathered [C, T, D] copy, added to precomputed norm sums
+        # [C, Q, T]; the gather and the norms are not timed.  It rounds in
+        # another order than l2_from_parts, so it is held only loosely to
+        # the plain version (4x the kernel's atol, rtol 1e-4)
+        gathered = st.pool_payload[uc.flat_blocks.clamp(min=0).long()]
+        qn = (q * q).sum(1)
+        norms = qn[None, :, None] + (gathered.float() ** 2).sum(-1)[:, None, :]
+        qb = q.to(gathered.dtype)[None].expand(c, -1, -1)
+        extra = {} if dtype == "float32" else {"out_dtype": torch.float32}
+
+        def library():
+            return torch.baddbmm(norms, qb, gathered.transpose(1, 2), alpha=-2.0,
+                                 **extra)
+
+        lib_out, want = library(), ref.ivf_block_scan_ref(*args)
+        lib_err = float((lib_out - want).abs().max())
+        check(torch.allclose(lib_out, want, rtol=1e-4,
+                             atol=4 * float(atol[:QUERY_BATCH].max())),
+              f"ivf_block_scan[{dtype}]: the baddbmm yardstick is off by {lib_err}")
+        log("library", name=f"ivf_block_scan[{dtype}]", call="torch.baddbmm",
+            max_abs_err=lib_err)
+        del lib_out, want
         records.append(kernel_record(
             f"ivf_block_scan[{dtype}]", "src/repro_torch/kernels/csrc/ivf_block_scan.cu",
             "src/repro/kernels/ivf_scan.py:91",
@@ -618,7 +643,9 @@ def phase_union(indexes, queries, truth, vmax) -> list:
             counts[f"ivf_block_scan[{dtype}]"], atol[:QUERY_BATCH],
             # a bf16 block meets the query rounded to bf16
             rate=BF16_FLOP_PER_S if dtype == "bfloat16" else F32_FLOP_PER_S,
+            library=library,
         ))
+        del gathered, norms, qb
     return records
 
 
@@ -1054,15 +1081,22 @@ def phase_pq(device, n_rows: int = N_PQ_ROWS, scale: float = 1.0):
     codes = payload.reshape(r, budget * t, cfg.pq_m).contiguous()
     lut_r = pqmod.probe_residual_luts(index.pq, st.centroids, q, probe_d).reshape(
         r, cfg.pq_m, 256).contiguous()
-    log("pq-adc-shapes", R=r, N=budget * t, M=cfg.pq_m)
-    records.append(kernel_record(
-        "pq_adc", "src/repro_torch/kernels/csrc/pq_adc.cu",
-        "src/repro/kernels/pq_adc.py:26",
-        lambda: pq_adc.pq_adc(lut_r, codes),
-        lambda: ref.pq_adc_ref(lut_r, codes),
-        codes.numel() + 4 * lut_r.numel() + 4 * r * budget * t,
-        codes.numel(), counts["pq_adc"], atol, bit_exact=True,
-    ))
+    # and as chain_walk calls it, once a hop: each probed list's block of
+    # that hop (here the first, the lists' heads)
+    head = st.cluster_head[probe_d.long()]
+    hop = st.pool_payload[torch.where(head < 0, 0, head).long()].reshape(
+        r, t, cfg.pq_m).contiguous()
+    for route, cd in (("block_table", codes), ("chain_walk", hop)):
+        n = cd.shape[1]
+        log("pq-adc-shapes", route=route, R=r, N=n, M=cfg.pq_m)
+        records.append(kernel_record(
+            f"pq_adc[{route}]", "src/repro_torch/kernels/csrc/pq_adc.cu",
+            "src/repro/kernels/pq_adc.py:26",
+            lambda cd=cd: pq_adc.pq_adc(lut_r, cd),
+            lambda cd=cd: ref.pq_adc_ref(lut_r, cd),
+            cd.numel() + 4 * lut_r.numel() + 4 * r * n,
+            cd.numel(), counts["pq_adc"], atol, bit_exact=True,
+        ))
     pq_route(index, "union_fused")
     phase_profile({"pq": index}, queries)
 

@@ -45,6 +45,7 @@
 // A GQA group of G > 8 query heads runs as launches of up to 8 heads
 // (pass 1 and pass 2 each), one after the other over the same scratch:
 // every kernel takes the group's first head g0 and its heads Gc.
+#include "mma_bf16.cuh"
 #include "topk_common.cuh"
 
 namespace {
@@ -307,37 +308,6 @@ paged_attn_split(const T* __restrict__ q, const T* __restrict__ k_pool,
 constexpr int kMmaWarps = 4;  // KV heads a block, at most
 constexpr int kStep = 16;     // positions a step
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, float32 accumulate
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// a staged row's stride in bf16 values: its values plus 16 bytes of padding
-__host__ __device__ __forceinline__ int mma_row(int n) { return n + 8; }
 
 // MAXKC: 16-value chunks of dh held in registers (dh <= 16 * MAXKC)
 template <int MAXKC>

@@ -500,6 +500,17 @@ __device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
                : "memory");
 }
 
+// 4 bytes through L1 (cp.async.ca: the only form below 16 bytes), zero-
+// filled when !valid, for rows that are not 16-byte aligned
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem,
+                                                bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

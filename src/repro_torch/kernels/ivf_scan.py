@@ -151,6 +151,57 @@ def coarse_topk(
     return out_i, out_d
 
 
+# csrc/ivf_block_scan.cu: queries a tile (resident), rows a tile, dims a
+# stage (128 bytes of a row) for float32 / bf16, bytes a stage (f32 rows
+# unpadded; bf16 rows padded by 16 bytes), stages in the ring at most (on
+# the H100, three were 0.5-0.8% faster than four at SIFT1M's shapes)
+SCAN_QT, SCAN_ROWS = 64, 256
+SCAN_CHUNK = {4: 32, 2: 64}
+SCAN_STAGE = {4: SCAN_ROWS * 32 * 4, 2: SCAN_ROWS * (64 + 8) * 2}
+SCAN_MAX_STAGES = 3
+
+
+def _scan_qtile_bytes(slab: int, esize: int) -> int:
+    """Shared memory of the resident query tile held ``slab`` dims at a
+    time: float32 [slab][64 + 4], bf16 [64][slab + 8]."""
+    if esize == 4:
+        return slab * (SCAN_QT + 4) * 4
+    return SCAN_QT * (slab + 8) * 2
+
+
+def plan_block_scan(q: int, c: int, t: int, d: int, esize: int,
+                    n_sm: int) -> dict[str, int]:
+    """How ``ivf_block_scan`` cuts its work: items (candidate, tile of
+    SCAN_ROWS rows), ``n_tiles`` a candidate; ``qtiles`` tiles of SCAN_QT
+    queries (the grid's y), each served by ``workers`` blocks (one a SM,
+    an even run of consecutive items each); a ring of ``ns`` stages of
+    SCAN_CHUNK dims; the query tile held ``slab`` dims at a time (all of
+    D, rounded up to a stage, wherever that fits beside two stages or
+    more: then it is staged once a block); ``smem`` bytes a block."""
+    chunk = SCAN_CHUNK[esize]
+    dpad = -(-d // chunk) * chunk
+    fixed = 4 * SCAN_ROWS  # the row norms of a tile
+
+    def smem(ns: int, slab: int) -> int:
+        return ns * SCAN_STAGE[esize] + fixed + _scan_qtile_bytes(slab, esize)
+
+    ns, slab = 2, dpad
+    for n in range(SCAN_MAX_STAGES, 1, -1):
+        if smem(n, dpad) <= launch.SMEM_LIMIT:
+            ns = n
+            break
+    else:  # D too wide: hold the query tile in the largest slab that fits
+        while slab > chunk and smem(2, slab) > launch.SMEM_LIMIT:
+            slab -= chunk
+    n_tiles = -(-t // SCAN_ROWS)
+    items = c * n_tiles
+    qtiles = -(-q // SCAN_QT)
+    workers = max(1, min(items, n_sm // qtiles))
+    return {"ns": ns, "slab": slab, "chunk": chunk, "n_tiles": n_tiles,
+            "items": items, "qtiles": qtiles, "workers": workers,
+            "smem": smem(ns, slab)}
+
+
 def ivf_block_scan(
     queries: torch.Tensor,  # [Q, D] f32
     pool: torch.Tensor,  # [P, T, D] f32 | bf16
@@ -164,15 +215,24 @@ def ivf_block_scan(
     launch.check("queries", queries, (torch.float32,), (q, d))
     launch.check("pool", pool, (torch.float32, torch.bfloat16), (p, t, d))
     launch.check("block_ids", block_ids, (torch.int32,), (c,))
-    n_ttiles = -(-t // 64)  # csrc/ivf_block_scan.cu kTileT, kTileQ
-    if c * n_ttiles >= 2**31 or -(-q // 64) > 65535:
+    if c * -(-t // SCAN_ROWS) >= 2**31 or -(-q // SCAN_QT) > 65535:
         raise ValueError(f"ivf_block_scan: C={c}, Q={q} exceed the grid")
-    out = torch.empty((c, q, t), dtype=torch.float32, device=queries.device)
+    dev = queries.device
+    out = torch.empty((c, q, t), dtype=torch.float32, device=dev)
     if c == 0 or q == 0:
         return out
-    launch.run("ivf_block_scan", f"ivf_block_scan_{_SUFFIX[pool.dtype]}",
-               queries.device, queries.data_ptr(), pool.data_ptr(), q, t, d,
-               block_ids.data_ptr(), c, out.data_ptr())
+    esize = pool.element_size()
+    plan = plan_block_scan(q, c, t, d, esize, launch.sm_count(dev))
+    # bytes a row copy: 16 where every row is 16-byte aligned, else 4, else
+    # (bf16 rows off 4 bytes) 2
+    ptr, row = pool.data_ptr(), d * esize
+    vec = 16 if ptr % 16 == 0 and row % 16 == 0 else (
+        4 if ptr % 4 == 0 and row % 4 == 0 else 2)
+    qn = torch.empty((q,), dtype=torch.float32, device=dev)  # ||q||^2
+    launch.run("ivf_block_scan", f"ivf_block_scan_{_SUFFIX[pool.dtype]}", dev,
+               queries.data_ptr(), pool.data_ptr(), q, t, d,
+               block_ids.data_ptr(), c, vec, plan["ns"], plan["slab"],
+               plan["workers"], qn.data_ptr(), out.data_ptr())
     LAUNCHES[f"ivf_block_scan[{_DTYPE_NAME[pool.dtype]}]"] += 1
     return out
 

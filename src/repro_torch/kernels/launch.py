@@ -28,7 +28,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "coarse_topk_f32": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                         _P],
-    "ivf_block_scan_f32": [_P, _P, _I, _I, _I, _P, _I, _P, _P],
+    "ivf_block_scan_f32": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P,
+                           _P],
     "ivf_block_topk_f32": [_P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _I,
                            _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                            _P],
@@ -40,7 +41,7 @@ SIGNATURES = {
     "ivf_pq_block_topk": [_P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _I, _I,
                           _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                           _P, _P],
-    "pq_adc_f32": [_P, _P, _I, _I, _I, _P, _P],
+    "pq_adc_f32": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "paged_decode_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _I, _I, _I, _I, ctypes.c_float, _P,
                                    _P, _P],

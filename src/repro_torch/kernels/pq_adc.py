@@ -20,9 +20,30 @@ import torch
 from repro_torch.kernels import launch
 
 KSUB = 256
-_TILE = 2048  # code rows per block (csrc/pq_adc.cu kTile)
+# csrc/pq_adc.cu: blocks an SM holds (its launch bounds: 256 threads of
+# 64 registers), and the rows an item keeps at least where a table is cut
+# (four a thread)
+ADC_BLOCKS_PER_SM, ADC_MIN_ROWS = 4, 1024
 
 LAUNCHES: dict[str, int] = {"pq_adc": 0}
+
+
+def plan_adc(r: int, n: int, m: int, n_sm: int) -> dict[str, int]:
+    """How ``pq_adc`` cuts its work: items (table, chunk of ``rpc`` rows),
+    ``nc`` a table (more than one only where the tables are fewer than the
+    blocks the SMs hold at once, and each chunk keeps ADC_MIN_ROWS rows);
+    ``ipb`` consecutive items a block and ``grid`` blocks, no more than the
+    SMs hold at once, so the grid runs in one wave with equal runs but the
+    last; ``smem`` bytes a block (its table)."""
+    smem = m * KSUB * 4
+    slots = n_sm * max(1, min(ADC_BLOCKS_PER_SM, launch.SM_SHARED // (smem + 1024)))
+    nc = max(1, min(n // ADC_MIN_ROWS, slots // max(r, 1)))
+    rpc = -(-n // nc)
+    nc = -(-n // rpc)
+    items = r * nc
+    ipb = -(-items // slots)
+    return {"nc": nc, "rpc": rpc, "items": items, "ipb": ipb,
+            "grid": -(-items // ipb), "smem": smem}
 
 
 def pq_adc(
@@ -39,12 +60,18 @@ def pq_adc(
         raise ValueError(
             f"pq_adc: an [{m}, 256] table exceeds {launch.SMEM_LIMIT} bytes"
         )
-    if -(-n // _TILE) > 65535:
-        raise ValueError(f"pq_adc: {n} codes per row exceed the grid")
     out = torch.empty((r, n), dtype=torch.float32, device=lut.device)
     if r == 0 or n == 0:
         return out
-    launch.run("pq_adc", "pq_adc_f32", lut.device, lut.data_ptr(), codes.data_ptr(),
-               r, n, m, out.data_ptr())
+    plan = plan_adc(r, n, m, launch.sm_count(lut.device))
+    if plan["items"] >= 2**31:
+        raise ValueError(f"pq_adc: {r} tables of {n} rows exceed the grid")
+    # bytes a code load: 16 where every row is 16-byte aligned, else 4, else 1
+    ptr = codes.data_ptr()
+    ub = 16 if m % 16 == 0 and ptr % 16 == 0 else (
+        4 if m % 4 == 0 and ptr % 4 == 0 else 1)
+    launch.run("pq_adc", "pq_adc_f32", lut.device, lut.data_ptr(), ptr, r, n, m,
+               ub, int(lut.data_ptr() % 16 == 0), plan["nc"], plan["rpc"],
+               plan["ipb"], plan["grid"], out.data_ptr())
     LAUNCHES["pq_adc"] += 1
     return out

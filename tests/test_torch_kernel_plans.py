@@ -3,7 +3,8 @@ the paged attention's split-K merge.
 
 The planners (``paged_attention.plan_splits``, ``ivf_scan.split_members``,
 ``ivf_scan.split_members_int8``, ``ivf_scan.split_members_pq``,
-``ivf_scan.split_centroids``) run on the
+``ivf_scan.split_centroids``, ``ivf_scan.plan_block_scan``,
+``pq_adc.plan_adc``) run on the
 host, so their plans are checked here on the CPU at the shapes the port
 serves: llama3-8b's [serve] (16 x 576 positions) and [decode_32k] (32,768
 positions), pool blocks over 32 positions and GQA groups over 8 heads, and
@@ -28,7 +29,7 @@ import torch
 from repro.configs.base import get_arch, list_archs
 from repro.kernels import ref as jref
 from repro.kernels.paged_attention import paged_decode_attention as jpaged
-from repro_torch.kernels import ivf_scan, launch, paged_attention, ref
+from repro_torch.kernels import ivf_scan, launch, paged_attention, pq_adc, ref
 
 N_SM = 132  # the H100's SMs
 TOL = 2e-5
@@ -110,6 +111,81 @@ def test_split_members_covers_every_member_once(q, c, t, d, esize, kprime):
             lo, hi = n * i // s, n * (i + 1) // s
             for g0 in range(lo, hi, per_group):
                 hits[g0 : min(hi, g0 + per_group)] += 1
+        assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("q,c,t,d,esize", [
+    (64, 1569, 1024, 128, 4),  # SIFT1M's union_pallas batch, float32
+    (64, 1569, 1024, 128, 2),  # the same, bfloat16
+    (200, 60, 100, 40, 4),  # several query tiles, a partial row tile
+    (1, 300, 1, 13, 2),  # rows of one value a tile, dims off a stage
+    (65, 1, 1024, 136, 2),  # one candidate
+    (64, 7, 300, 700, 4),  # float32 query tile held in slabs
+    (64, 7, 300, 1300, 2),  # bf16 query tile held in slabs
+    (9000, 3, 64, 4096, 4),  # more query tiles than SMs, very wide rows
+    (64, 2_000_000, 64, 8, 2),  # C near the grid's former limit
+])
+def test_plan_block_scan_covers_every_row_once(q, c, t, d, esize):
+    """Every (query tile, candidate, row) falls in exactly one worker's
+    item, every dim in one stage of one slab of the query tile, and a
+    block's shared memory stays within the limit: the shapes the first
+    design took are all taken."""
+    plan = ivf_scan.plan_block_scan(q, c, t, d, esize, N_SM)
+    chunk, slab, ns = plan["chunk"], plan["slab"], plan["ns"]
+    assert plan["smem"] <= launch.SMEM_LIMIT and 2 <= ns <= 4
+    assert slab % chunk == 0 and chunk * esize == 128  # 128 bytes a row a stage
+    dpad = -(-d // chunk) * chunk
+    assert slab == dpad or ns == 2  # resident wherever two stages leave room
+    # the slabs' stages cover dims [0, dpad) once
+    dims = np.zeros(dpad, np.int64)
+    for ch in range(dpad // chunk):
+        sl = ch // (slab // chunk)
+        assert sl * slab + (ch - sl * (slab // chunk)) * chunk == ch * chunk
+        dims[ch * chunk : (ch + 1) * chunk] += 1
+    assert (dims == 1).all()
+    n_tiles, items, w = plan["n_tiles"], plan["items"], plan["workers"]
+    assert items == c * n_tiles and 1 <= w <= max(1, items)
+    assert plan["qtiles"] == -(-q // ivf_scan.SCAN_QT) <= 65535
+    assert w * plan["qtiles"] <= max(N_SM, plan["qtiles"])  # one block an SM
+    # worker i takes items [items*i // W, items*(i+1) // W); item it is
+    # candidate it // n_tiles, rows (it % n_tiles) * 256 + [0, 256) below T
+    hits = np.zeros(items, np.int64)
+    for i in range(w):
+        hits[items * i // w : items * (i + 1) // w] += 1
+    assert (hits == 1).all()
+    if items <= 10_000:
+        rows = np.zeros((c, t), np.int64)
+        for it in range(items):
+            t0 = (it % n_tiles) * ivf_scan.SCAN_ROWS
+            rows[it // n_tiles, t0 : t0 + ivf_scan.SCAN_ROWS] += 1
+        assert (rows == 1).all()
+
+
+@pytest.mark.parametrize("r,n,m", [
+    (2048, 2048, 16),  # block_table at the DSSM deployment
+    (2048, 1024, 16),  # chain_walk
+    (6, 40, 8), (3, 5000, 225), (3, 2049, 64), (1, 1, 1), (1000, 1024, 16),
+    (64, 5000, 16), (200_000, 31, 3),
+    (1, 65535 * 2048, 16),  # the first design's longest row of codes
+    (5, 700, 227),  # the largest table shared memory holds
+])
+def test_plan_adc_covers_every_row_once(r, n, m):
+    """Every (table, code row) falls in exactly one item of one block; the
+    grid fits the SMs at once with runs of equal length but the last; the
+    table fits in shared memory."""
+    plan = pq_adc.plan_adc(r, n, m, N_SM)
+    nc, rpc, ipb, grid, items = plan["nc"], plan["rpc"], plan["ipb"], plan["grid"], plan["items"]
+    assert plan["smem"] == m * 1024 <= launch.SMEM_LIMIT
+    assert items == r * nc < 2**31 and nc == -(-n // rpc)
+    assert nc == 1 or rpc >= pq_adc.ADC_MIN_ROWS
+    per_sm = min(pq_adc.ADC_BLOCKS_PER_SM, launch.SM_SHARED // (m * 1024 + 1024))
+    assert (grid - 1) * ipb < items <= grid * ipb and grid <= per_sm * N_SM
+    # block b takes items [b*ipb, min(items, (b+1)*ipb)); item it covers
+    # table it // nc, rows (it % nc) * rpc + [0, rpc) below N
+    if r * n <= 5_000_000:
+        hits = np.zeros((r, n), np.int64)
+        for it in range(items):
+            hits[it // nc, (it % nc) * rpc : (it % nc + 1) * rpc] += 1
         assert (hits == 1).all()
 
 

@@ -882,6 +882,149 @@ def test_ivf_block_scan_kernel_matches_plain(cuda, dtype, q, p, t, d, c):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
+def _scan_run(cuda, dtype, queries, pool, bids, pool_view=None):
+    """ivf_block_scan on the card against its plain version on the same
+    inputs, one launch counted; ``pool_view`` (a CUDA tensor holding
+    ``pool``'s values) replaces the plain copy on the kernel's side."""
+    args = (_t(queries).to(cuda), _torch_pool(pool, dtype).to(cuda), _t(bids).to(cuda))
+    if pool_view is not None:
+        args = (args[0], pool_view, args[2])
+    name = f"ivf_block_scan[{dtype}]"
+    before = ops.launch_counts()[name]
+    got = ivf_scan.ivf_block_scan(*args)
+    want = ref.ivf_block_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[name] == before + 1
+    assert got.shape == want.shape == (len(bids), queries.shape[0], pool.shape[1])
+    # float32 sums in another order than the plain version's matmul
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+def _scan_inputs(seed, q, p, t, d, c, holes=True):
+    rng = np.random.default_rng(seed)
+    queries = rng.normal(size=(q, d)).astype(np.float32)
+    pool = rng.normal(size=(p, t, d)).astype(np.float32)
+    bids = rng.integers(0, p, size=(c,)).astype(np.int32)
+    if holes:
+        bids[rng.random(c) < 0.3] = -1
+    return queries, pool, bids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [13, 40, 128, 136, 256])
+def test_ivf_block_scan_kernel_widths(cuda, dtype, d):
+    """Dims off a stage (13, 40: zero-filled; 136: a stage and a part),
+    one and several stages, with hole candidates (-1): rows of 13 floats
+    and of 13 bf16 values are off 16 bytes and take the narrow copies."""
+    _scan_run(cuda, dtype, *_scan_inputs(d, 65, 6, 100, d, 9))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("q", [1, 64, 65, 200])
+@pytest.mark.parametrize("t", [1, 100, 1024])
+def test_ivf_block_scan_kernel_tiles(cuda, dtype, q, t):
+    """Query tiles full, ragged and several (grid y), row tiles of one row,
+    a partial tile and four tiles a candidate, over more items than the
+    workers take at once (C = 300 at T = 1, 60 at T = 100)."""
+    c = {1: 300, 100: 60, 1024: 5}[t]
+    _scan_run(cuda, dtype, *_scan_inputs(q * t, q, 8, t, 40, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bid", [3, -1])
+def test_ivf_block_scan_kernel_one_candidate(cuda, dtype, bid):
+    """C = 1: one worker, one candidate (a hole reads block 0)."""
+    queries, pool, _ = _scan_inputs(5, 64, 4, 1024, 128, 1)
+    _scan_run(cuda, dtype, queries, pool, np.array([bid], np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,offset", [(13, "row"), (42, "row"), (128, "value"),
+                                      (40, "value")])
+def test_ivf_block_scan_kernel_unaligned_pool(cuda, dtype, d, offset):
+    """A pool view one row (of 13 or 42 values) or one value past a
+    16-byte boundary: its rows are not 16-byte aligned, so they are copied
+    4 bytes at a time (bf16 rows of 42 values), or 2 (bf16 rows off 4
+    bytes)."""
+    queries, pool, bids = _scan_inputs(d + 1, 70, 5, 100, d, 12)
+    host = _torch_pool(pool, dtype)
+    skip = d if offset == "row" else 1
+    flat = torch.zeros(host.numel() + skip, dtype=host.dtype, device=cuda)
+    view = flat[skip:].view(host.shape)
+    view.copy_(host.to(cuda))
+    assert view.data_ptr() % 16
+    _scan_run(cuda, dtype, queries, pool, bids, pool_view=view)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("float32", 700), ("bfloat16", 1300)])
+def test_ivf_block_scan_kernel_query_slabs(cuda, dtype, d):
+    """Dims too many for the query tile beside the ring: it is held in
+    slabs (608 float32 dims, 1216 bf16) restaged per item."""
+    slab = ivf_scan.plan_block_scan(64, 7, 300, d, 4 if dtype == "float32" else 2,
+                                    132)["slab"]
+    assert slab < d
+    _scan_run(cuda, dtype, *_scan_inputs(d, 64, 5, 300, d, 7))
+
+
+def _adc_run(lut, codes):
+    """pq_adc on the card, bit-equal to its plain version, one launch."""
+    before = ops.launch_counts()["pq_adc"]
+    got = pq_adc.pq_adc(lut, codes)
+    want = ref.pq_adc_ref(lut, codes)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["pq_adc"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 3, 8, 16, 32, 64, 225])
+@pytest.mark.parametrize("n", [1, 31, 1024, 2049, 5000])
+def test_pq_adc_kernel_widths_and_lengths(cuda, m, n):
+    """Every load width (16-byte rows at M 16, 32, 64; 4-byte at M 8; bytes
+    at M 1, 3, 225), tables up to the shared-memory limit (M 225) and rows
+    a table from one to chunks of several blocks."""
+    lut, codes = (_t(a).to(cuda) for a in _adc_inputs(seed=m * n, r=3, n=n, m=m))
+    _adc_run(lut, codes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 16, 225])
+@pytest.mark.parametrize("what", ["codes", "lut"])
+def test_pq_adc_kernel_unaligned_views(cuda, m, what):
+    """Codes sliced to an odd byte offset (1-byte loads), or tables one
+    float off 16 bytes (4-byte copies)."""
+    lut, codes = (_t(a).to(cuda) for a in _adc_inputs(seed=m, r=5, n=700, m=m))
+    src = codes if what == "codes" else lut
+    flat = torch.zeros(src.numel() + 1, dtype=src.dtype, device=cuda)
+    view = flat[1:].view(src.shape)
+    view.copy_(src)
+    assert view.data_ptr() % (2 if what == "codes" else 16)
+    if what == "codes":
+        _adc_run(lut, view)
+    else:
+        _adc_run(view, codes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n", [(2048, 2048), (2048, 1024), (1000, 1024),
+                                 (600, 3000)])
+def test_pq_adc_kernel_tied_tables_at_served_shapes(cuda, r, n):
+    """block_table's (2048 x 2048) and chain_walk's (2048 x 1024) shapes,
+    where a block takes several tables in turn, restaging its one table
+    buffer, and runs that do not divide evenly; every table equal and the
+    codes tied, so equal sums must come out equal."""
+    lut, codes = _adc_inputs(seed=r + n, r=r, n=n, m=16, ties=True)
+    lut[:] = lut[0]
+    _adc_run(_t(lut).to(cuda), _t(codes).to(cuda))
+    lut, codes = _adc_inputs(seed=r * n, r=r, n=n, m=16)
+    _adc_run(_t(lut).to(cuda), _t(codes).to(cuda))
+
+
 def _paged_inputs(b, h, kvh, dh, t, nb, seed, lengths=None):
     """The reference's kernel-test layout: each sequence owns nb blocks of
     a shuffled pool, -1 table entries past its end; random lengths with one
