@@ -91,6 +91,16 @@ QUEUE_SLEEP_CYCLES = 80_000_000
 N_DELETED = 350_000  # churn: the oldest 35% of the corpus's ids
 UPDATE_BATCHES, UPDATE_BATCH = 4, 4096
 MUTATION_BATCH = 4096
+# the [runtime] phase: ServingRuntime at the paper's §3.3 settings (its
+# defaults: 32 slots, search batches of 10, flush at 128 rows, at most
+# 1024, 1 s), union_fused, nprobe 32, k 10
+RUNTIME_QPS = (2_000, 8_000)  # offered single-query searches a second
+RUNTIME_INSERT_RPS = 250  # inserts of 16 rows a second: 4,000 rows/s
+RUNTIME_SECONDS, RUNTIME_SHORT_SECONDS = 4.0, 3.0
+RUNTIME_CHECK_BATCH, RUNTIME_ACKED_SAMPLE = 64, 512
+RUNTIME_MIX_LISTS = 12  # lists whose every live id the mixed run deletes
+RUNTIME_MIX_RPS = 40  # deletes and updates of 16 ids a second each
+RUNTIME_MIX_UPDATES = 8_192
 # the [pq] phase: the DSSM deployment's corpus and its cuts
 N_PQ_ROWS = 40_000_000
 PQ_TRAIN_ROWS = 1_280_000  # k-means sample: 8 rows per list
@@ -804,6 +814,424 @@ def phase_profile(indexes, queries) -> None:
             top_ms_per_batch=[(n, round(t / len(batches), 4)) for n, t in top])
 
 
+# ------------------------------------------------------------ runtime ----
+
+
+def _intervals_ms(intervals) -> float:
+    """Length (ms) of the union of (start_us, end_us) intervals."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
+
+
+def _overlap_ms(xs, ys) -> float:
+    """Length (ms) of the intersection of two interval sets' unions."""
+    def union(iv):
+        out = []
+        for a, b in sorted(iv):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    u, v, i, j, total = union(xs), union(ys), 0, 0, 0.0
+    while i < len(u) and j < len(v):
+        a, b = max(u[i][0], v[j][0]), min(u[i][1], v[j][1])
+        total += max(0.0, b - a)
+        if u[i][1] < v[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total / 1e3
+
+
+def _device_streams(prof, window_us: float) -> dict:
+    """Device activity of a torch.profiler run by CUDA stream (the
+    profiler's stream ids), clipped to its first ``window_us`` (event
+    times count from the trace's start): {stream: [(start_us, end_us),
+    ...]} of kernels, and all device activity under the key "all"."""
+    from torch.autograd import DeviceType
+
+    by_stream: dict = {"all": []}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        span = (max(0.0, e.time_range.start), min(window_us, e.time_range.end))
+        if span[1] <= span[0]:
+            continue
+        by_stream["all"].append(span)
+        if not e.name.startswith(("Memcpy", "Memset")):
+            by_stream.setdefault(e.device_resource_id, []).append(span)
+    return by_stream
+
+
+def _device_events_per_dispatch(rt, one, fresh, n: int = 20) -> dict:
+    """Device activities (kernels, copies, fills) of one single-query
+    search dispatch and of one 128-row insert dispatch, under
+    torch.profiler: each is a host launch, what a CUDA graph would fold."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def count(fn, reps):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                fn(i)
+            torch.cuda.synchronize()
+        n_dev = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+        return round(n_dev / reps, 1) if n_dev else "not measured"
+
+    rows = [fresh[i * 128 : (i + 1) * 128] for i in range(5)]
+    rt.submit_insert(rows[0]).result(60)  # a first dispatch of the kind
+    return {
+        "device_events_per_search": count(
+            lambda i: rt.submit_search(one[i % len(one)]).result(60), n),
+        # flush_min is 128: each 128-row request dispatches alone
+        "device_events_per_insert_128": count(
+            lambda i: rt.submit_insert(rows[i + 1]).result(60), 4),
+    }
+
+
+def runtime_dispatch(index, queries, fresh, reps: int = 100) -> None:
+    """Closed loop, one request at a time, each awaited: the host cost of a
+    search dispatch through ``ServingRuntime`` (one query, and ten rows in
+    one request) beside ``IVFIndex.search`` on the same rows, in each
+    mode; then single-query searches again while a second thread feeds
+    inserts of 16 rows at RUNTIME_INSERT_RPS.  No load generator runs
+    beside the lanes, so this is what one dispatch costs without it."""
+    import threading
+
+    import numpy as np
+    from repro_torch.core.runtime import RuntimeConfig, ServingRuntime
+
+    def ms(fn):
+        fn()
+        out = []
+        for i in range(reps):
+            t0 = time.perf_counter()
+            fn(i)
+            out.append((time.perf_counter() - t0) * 1e3)
+        return round(float(np.median(out)), 3), round(float(np.percentile(out, 99)), 3)
+
+    one = [queries[i : i + 1] for i in range(reps)]
+    fields = {"direct_1": ms(lambda i=0: index.search(one[i])),
+              "direct_10": ms(lambda i=0: index.search(queries[:10]))}
+    for mode in ("serial", "parallel", "fused"):
+        rt = ServingRuntime(index, RuntimeConfig(
+            mode=mode, nprobe=index.cfg.nprobe, k=index.cfg.k,
+            search_path="union_fused"))
+        try:
+            if mode == "serial":
+                fields.update(_device_events_per_dispatch(rt, one, fresh))
+            fields[f"{mode}_1"] = ms(lambda i=0: rt.submit_search(one[i]).result(60))
+            fields[f"{mode}_10"] = ms(lambda i=0: rt.submit_search(queries[:10]).result(60))
+            stop, acks = threading.Event(), []
+
+            def feed():
+                for off in range(0, len(fresh) - 16, 16):
+                    if stop.is_set():
+                        break
+                    acks.append(rt.submit_insert(fresh[off : off + 16]))
+                    time.sleep(1.0 / RUNTIME_INSERT_RPS)
+
+            feeder = threading.Thread(target=feed)
+            feeder.start()
+            rt.reset_stats()
+            fields[f"{mode}_1_inserting"] = ms(
+                lambda i=0: rt.submit_search(one[i]).result(60))
+            stop.set()
+            feeder.join(60)
+            for f in acks:
+                f.result(timeout=60)
+            fields[f"{mode}_insert_ack_p50"] = round(
+                rt.stats()["percentiles"]["insert"]["p50_ms"], 3)
+        finally:
+            rt.stop()
+    log("runtime-dispatch", reps=reps, unit="ms p50, p99", **fields)
+
+
+def runtime_run(index, queries, fresh, *, tag, mode, qps, seconds,
+                rerank=False, vmax=1.0, found="rank0") -> dict:
+    """One open-loop run of single-query searches at ``qps`` and 16-row
+    inserts at RUNTIME_INSERT_RPS through ``ServingRuntime`` (the paper's
+    §3.3 settings: its defaults) on ``index``, its last second profiled;
+    prints a [runtime] line.  Then it checks, raising on failure: a batch
+    of RUNTIME_CHECK_BATCH queries through the runtime against
+    ``search_union_fused`` called directly on the same state with the same
+    budget (the tie rule), and RUNTIME_ACKED_SAMPLE acked inserts found
+    for their own vectors (``found``: at rank 0, or in the top k)."""
+    import threading
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.runtime import RuntimeConfig, ServingRuntime
+    from repro_torch.core.search import search_union_fused
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve import drive
+
+    t_run = time.perf_counter()
+    rt = ServingRuntime(index, RuntimeConfig(
+        mode=mode, nprobe=index.cfg.nprobe, k=index.cfg.k,
+        search_path="union_fused", rerank=rerank, latency_window=10**6))
+    sent, box = [], {}
+    try:
+        def run():
+            # warm-up: the search step's first dispatch (the inserts load
+            # no kernel); its latency stays out of the statistics
+            rt.submit_search(queries[:1]).result(timeout=60)
+            rt.reset_stats()
+            box["t0"] = time.perf_counter()
+            box["rejected"] = drive(
+                rt, queries, qps_search=qps,
+                qps_insert=16 * RUNTIME_INSERT_RPS, duration=seconds,
+                warmup=False, queries=queries, fresh=fresh, sent=sent)
+
+        generator = threading.Thread(target=run)
+        generator.start()
+        t_end = time.perf_counter() + 120
+        while not sent:  # past the warm-up
+            check(time.perf_counter() < t_end and generator.is_alive(),
+                  f"runtime {tag}: the load generator never started")
+            time.sleep(0.005)
+        # the run's last second is profiled: the profiler stops as the
+        # traffic ends, and its trace is parsed (on the host, holding the
+        # interpreter) only after the run has drained
+        t_stop = box["t0"] + seconds
+        time.sleep(max(0.0, t_stop - 1.0 - time.perf_counter()))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            time.sleep(max(0.0, t_stop - t0))
+        prof_ms = (t_stop - t0) * 1e3
+        generator.join(seconds + 120)
+        check(not generator.is_alive(), f"runtime {tag}: the load generator hung")
+        stats = rt.stats()
+        # the runtime against the direct call, on the drained state
+        cq = queries[:RUNTIME_CHECK_BATCH]
+        d_rt, i_rt = rt.submit_search(cq).result(timeout=60)
+    finally:
+        rt.stop()
+    torch.cuda.synchronize()
+    lanes = rt.lane_streams()
+    budget = rt._current_budget()
+    q = torch.as_tensor(cq, device=index.device)
+    d_dir, i_dir = search_union_fused(
+        index.pool_cfg, index.state, q, nprobe=index.cfg.nprobe,
+        k=index.cfg.k, chain_budget=budget, pq=index.pq, rerank=rerank)
+    atol = (1e-6 * ((q * q).sum(1) + vmax)).cpu()
+    faults = ref.topk_mismatches(torch.as_tensor(d_rt), torch.as_tensor(i_rt),
+                                 d_dir.cpu(), i_dir.cpu(), rtol=1e-5, atol=atol)
+    check(not faults, f"runtime {tag}: runtime vs direct search: {faults[:3]}")
+    # every acked insert is found for its own vector
+    acked = [(v, f.result()) for kind, v, f in sent
+             if kind == "insert" and f.exception() is None]
+    vecs = np.concatenate([v for v, _ in acked])
+    ids = np.concatenate([i for _, i in acked])
+    pick = np.random.default_rng(0).choice(
+        len(ids), min(RUNTIME_ACKED_SAMPLE, len(ids)), replace=False)
+    saved = index.cfg.rerank
+    index.cfg.rerank = rerank
+    got = np.concatenate([index.search(vecs[pick[o : o + QUERY_BATCH]])[1]
+                          for o in range(0, len(pick), QUERY_BATCH)])
+    index.cfg.rerank = saved
+    hit = (got[:, 0] == ids[pick]) if found == "rank0" else \
+        (got == ids[pick][:, None]).any(1)
+    check(hit.all(), f"runtime {tag}: {int((~hit).sum())} of {len(pick)} acked "
+          f"inserts not found ({found})")
+    check(stats["num_dropped"] == 0, f"runtime {tag}: inserts dropped")
+    # served, rejected and latencies over the measured window
+    served = sum(1 for kind, _, f in sent
+                 if kind == "search" and f.exception() is None)
+    p = stats["percentiles"]
+    by_stream = _device_streams(prof, prof_ms * 1e3)
+    busy_ms = _intervals_ms(by_stream.pop("all"))
+    streams = sorted(by_stream.items(), key=lambda kv: -_intervals_ms(kv[1]))
+    fields = {}
+    if mode == "parallel" and len(streams) >= 2:
+        fields["overlap_ms"] = round(_overlap_ms(streams[0][1], streams[1][1]), 4)
+    log("runtime", tag=tag, mode=mode, rerank=rerank, seconds=seconds,
+        offered_qps=qps, served_qps=round(served / seconds, 1),
+        rejected_search=box.get("rejected"),
+        rejected_mutation=stats["rejected_mutation"],
+        search_p50_ms=round(p["search"]["p50_ms"], 3),
+        search_p99_ms=round(p["search"]["p99_ms"], 3),
+        insert_ack_p50_ms=round(p["insert"]["p50_ms"], 3),
+        insert_ack_p99_ms=round(p["insert"]["p99_ms"], 3),
+        rows_inserted=stats["inserts"], profiled_ms=round(prof_ms, 1),
+        device_busy_ms=round(busy_ms, 3),
+        device_idle_share=(round(1 - busy_ms / prof_ms, 4) if busy_ms
+                           else "not measured"),
+        lane_streams={k: (None if s is None else s.stream_id)
+                      for k, s in lanes.items()},
+        profiler_streams={str(k): [len(v), round(_intervals_ms(v), 3)]
+                          for k, v in streams},
+        budget=budget, run_s=round(time.perf_counter() - t_run, 1), **fields)
+    return {"lanes": lanes, "stats": stats}
+
+
+def runtime_mixed(index, queries, fresh, upd_vecs, *, seconds, qps) -> None:
+    """One parallel run with deletes and updates mixed into the searches
+    and inserts, auto-compaction on.  The deletes take every live id of
+    RUNTIME_MIX_LISTS lists (so their dead fraction crosses the trigger
+    and compaction passes run beside the searches); the updates refresh
+    other live ids.  Half the searches ask for the vectors of ids whose
+    delete was already acked.  Checks: no result row holds an id twice
+    (the signature of a torn update), and no id whose delete was acked
+    before a search was submitted appears in that search's result."""
+    import numpy as np
+    import torch
+    from repro_torch.core.admission import RequestRejected
+    from repro_torch.core.runtime import RuntimeConfig, ServingRuntime
+
+    torch.cuda.synchronize()
+    st = index.state
+    lists = torch.nonzero(st.cluster_nblocks > 0).flatten()[:RUNTIME_MIX_LISTS]
+    blocks = st.cluster_blocks[lists].flatten()
+    blocks = blocks[blocks >= 0].long()
+    live = st.pool_live[blocks].flatten() == 1
+    del_ids = st.pool_ids[blocks].flatten()[live].cpu().numpy()
+    loc = st.id_map[torch.as_tensor(del_ids, device=st.device).long()]
+    del_vecs = st.pool_payload.reshape(-1, index.pool_cfg.dim)[loc.long()].float().cpu().numpy()
+    id_map = st.id_map.cpu().numpy()
+    others = np.setdiff1d(np.flatnonzero(id_map >= 0), del_ids)
+    rng = np.random.default_rng(2)
+    upd_ids = rng.choice(others, len(upd_vecs), replace=False).astype(np.int32)
+    rt = ServingRuntime(index, RuntimeConfig(
+        mode="parallel", nprobe=index.cfg.nprobe, k=index.cfg.k,
+        search_path="union_fused", auto_compact=True, latency_window=10**6))
+    searches, deletes, futs = [], [], []
+    acked: list = []  # (t_ack, ids, offset) appended by the lane's callback
+    try:
+        rt.submit_search(queries[:1]).result(timeout=60)
+        rt.reset_stats()
+        t_end = time.perf_counter() + seconds
+        nxt = dict.fromkeys(("s", "i", "d", "u"), time.perf_counter())
+        n = dict.fromkeys(("i", "d", "u"), 0)
+        while time.perf_counter() < t_end:
+            now = time.perf_counter()
+            while now >= nxt["s"]:
+                if acked and rng.random() < 0.5:
+                    _, ids, off = acked[int(rng.integers(0, len(acked)))]
+                    j = off + int(rng.integers(0, len(ids)))
+                    qv = del_vecs[j : j + 1]
+                else:
+                    qv = queries[rng.integers(0, len(queries), 1)]
+                try:
+                    t_sub = time.perf_counter()
+                    searches.append((t_sub, rt.submit_search(qv)))
+                except RequestRejected:
+                    pass
+                nxt["s"] += rng.exponential(1.0 / qps)
+            while now >= nxt["i"]:
+                futs.append(rt.submit_insert(fresh[n["i"] : n["i"] + 16]))
+                n["i"] += 16
+                nxt["i"] += rng.exponential(1.0 / RUNTIME_INSERT_RPS)
+            while now >= nxt["d"] and n["d"] < len(del_ids):
+                off = n["d"]
+                ids = del_ids[off : off + 16]
+                f = rt.submit_delete(ids)
+                f.add_done_callback(
+                    lambda f, ids=ids, off=off: f.exception() is None
+                    and acked.append((time.perf_counter(), ids, off)))
+                deletes.append(f)
+                n["d"] += 16
+                nxt["d"] += rng.exponential(1.0 / RUNTIME_MIX_RPS)
+            while now >= nxt["u"] and n["u"] < len(upd_ids):
+                sl = slice(n["u"], n["u"] + 16)
+                futs.append(rt.submit_update(upd_vecs[sl], upd_ids[sl]))
+                n["u"] += 16
+                nxt["u"] += rng.exponential(1.0 / RUNTIME_MIX_RPS)
+            time.sleep(0.0005)
+        for f in futs + deletes + [f for _, f in searches]:
+            check(f.exception(timeout=60) is None, f"runtime mix: {f.exception()}")
+        stats = rt.stats()
+    finally:
+        rt.stop()
+    acked.sort(key=lambda a: a[0])
+    ack_t = np.array([a[0] for a in acked])
+    gone_ids = np.concatenate([a[1] for a in acked] or [np.zeros(0, np.int32)])
+    gone_n = np.cumsum([len(a[1]) for a in acked] or [0])
+    twice = served_deleted = 0
+    for t_sub, f in searches:
+        ids = f.result()[1]
+        for row in ids:
+            row = row[row >= 0]
+            twice += len(row) - len(np.unique(row))
+        k = int(np.searchsorted(ack_t, t_sub))  # deletes acked before it
+        if k:
+            served_deleted += int(np.isin(ids, gone_ids[: gone_n[k - 1]]).sum())
+    p = stats["percentiles"]
+    log("runtime", tag="mix", mode="parallel", seconds=seconds, offered_qps=qps,
+        searches=len(searches), deletes=stats["deletes"],
+        updates=stats["updates"], rows_inserted=stats["inserts"],
+        compactions=stats["compactions"],
+        search_p50_ms=round(p["search"]["p50_ms"], 3),
+        search_p99_ms=round(p["search"]["p99_ms"], 3),
+        mutation_ack_p50_ms=round(p["mutation"]["p50_ms"], 3),
+        mutation_ack_p99_ms=round(p["mutation"]["p99_ms"], 3),
+        ids_twice_in_a_row=twice, acked_deleted_ids_served=served_deleted)
+    check(twice == 0, f"runtime mix: {twice} ids served twice in one row")
+    check(served_deleted == 0,
+          f"runtime mix: {served_deleted} ids served after their delete was acked")
+    n_del, n_upd = min(n["d"], len(del_ids)), min(n["u"], len(upd_ids))
+    check(stats["deletes"] == n_del and stats["updates"] == n_upd,
+          f"runtime mix: deletes {stats['deletes']}/{n_del}, "
+          f"updates {stats['updates']}/{n_upd}")
+    check(stats["compactions"] > 0, "runtime mix: no compaction pass ran")
+
+
+def phase_runtime(indexes, queries, vmax, dim) -> None:
+    """The serving runtime on the float32 SIFT1M index: every mode at each
+    of RUNTIME_QPS offered searches a second with 4,000 inserted rows a
+    second, then the mixed run with deletes, updates and compaction, then a
+    re-ranked run on the int8 index; the kernels of those paths must have
+    launched."""
+    from repro_torch.data.synthetic import sift_like
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    n_fresh = int(16 * RUNTIME_INSERT_RPS * RUNTIME_SECONDS * 1.5) + 64
+    runtime_dispatch(indexes["float32"], queries, sift_like(n_fresh, dim, seed=9))
+    seed = 10
+    lanes = {}
+    for mode in ("serial", "parallel", "fused"):
+        for qps in RUNTIME_QPS:
+            seed += 1
+            out = runtime_run(indexes["float32"], queries,
+                              sift_like(n_fresh, dim, seed=seed),
+                              tag=f"sift1m-f32-{qps}", mode=mode, qps=qps,
+                              seconds=RUNTIME_SECONDS, vmax=vmax)
+            lanes[mode] = out["lanes"]
+    s, m = lanes["parallel"]["search"], lanes["parallel"]["mutation"]
+    check(s is not None and m is not None and s.stream_id != m.stream_id,
+          "parallel: the lanes share a stream")
+    default = __import__("torch").cuda.default_stream()
+    check(default.stream_id not in (s.stream_id, m.stream_id),
+          "parallel: a lane issues on the default stream")
+    runtime_mixed(indexes["float32"], queries, sift_like(n_fresh, dim, seed=20),
+                  sift_like(RUNTIME_MIX_UPDATES, dim, seed=21),
+                  seconds=RUNTIME_SHORT_SECONDS, qps=RUNTIME_QPS[0])
+    runtime_run(indexes["int8"], queries, sift_like(n_fresh, dim, seed=22),
+                tag="sift1m-int8-rerank", mode="parallel", qps=RUNTIME_QPS[0],
+                seconds=RUNTIME_SHORT_SECONDS, rerank=True, vmax=vmax,
+                found="top_k")
+    counts = ops.launch_counts()
+    log("kernels", path="runtime", **counts)
+    for name in ("coarse_topk", "ivf_block_topk[float32]",
+                 "ivf_block_topk_int8", "rerank_topk[float32]"):
+        check(counts[name] > 0, f"kernel {name} never launched in [runtime]")
+    log("runtime-phase", seconds=round(time.perf_counter() - t_phase, 1))
+
+
 def dssm_rows(n: int, dim: int, seed: int, device, stream: int = 0):
     """[n, dim] float32 rows of ``dssm_like``'s distribution, drawn on
     ``device``: the 256 topics as ``dssm_like(seed=seed)`` draws them, then
@@ -1133,6 +1561,19 @@ def phase_pq(device, n_rows: int = N_PQ_ROWS, scale: float = 1.0):
         update_ms=round(upd_ms, 3), updated_found_at_rank_1=round(float(
             (found[:, 0] == upd_ids).mean()), 4),
         live_vectors=index.stats()["live_vectors"])
+    # the serving runtime on the DSSM index, re-ranked
+    before = ops.launch_counts()
+    runtime_run(index, queries, dssm_rows(
+        int(16 * RUNTIME_INSERT_RPS * RUNTIME_SHORT_SECONDS * 1.5) + 64, cfg.dim,
+        seed=1, device=device, stream=2).cpu().numpy(),
+        tag="dssm-pq-rerank", mode="parallel", qps=RUNTIME_QPS[0],
+        seconds=RUNTIME_SHORT_SECONDS, rerank=True, found="top_k")
+    grew = {k: v - before[k] for k, v in ops.launch_counts().items()
+            if v > before[k]}
+    log("kernels", path="runtime-pq", **grew)
+    for name in ("coarse_topk", "ivf_pq_block_topk", "rerank_topk[float32]"):
+        check(grew.get(name, 0) > 0, f"kernel {name} never launched in the "
+              "DSSM runtime run")
     log("pq", seconds=round(time.perf_counter() - t_phase, 1))
     return records
 
@@ -1531,6 +1972,8 @@ def main() -> int:
     for name in ("coarse_topk", "ivf_block_topk[float32]", "ivf_block_topk_int8",
                  "rerank_topk[float32]"):
         check(churn_counts[name] > 0, f"kernel {name} never launched on the churn path")
+    # the serving runtime on the churned, compacted float32 and int8 indexes
+    phase_runtime(indexes, queries, vmax, cfg.dim)
     # the DSSM deployment, once the SIFT1M indexes are freed
     del indexes, index, indexed, data, corpus, online
     gc.collect()

@@ -11,6 +11,14 @@ from repro_torch.core.block_pool import (  # noqa: F401
     snapshot_ids,
     utilisation,
 )
+from repro_torch.core.admission import (  # noqa: F401
+    DeadlineExceeded,
+    DegradationLadder,
+    QueueFull,
+    RequestRejected,
+    RuntimeShutdown,
+)
+from repro_torch.core.faults import FaultPlan  # noqa: F401
 from repro_torch.core.insert import (  # noqa: F401
     assign_clusters,
     insert_payload,
@@ -37,6 +45,7 @@ from repro_torch.core.rearrange import (  # noqa: F401
     make_rearrange_fn,
     rearrange_cluster,
 )
+from repro_torch.core.runtime import RuntimeConfig, ServingRuntime  # noqa: F401
 from repro_torch.core.search import (  # noqa: F401
     exact_search,
     make_search_fn,

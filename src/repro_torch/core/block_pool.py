@@ -4,8 +4,12 @@ The paper pre-splits almost the entire GPU memory into blocks of ``T_m``
 vectors and allocates them with a lock-free ``atomicAdd(cur_P)`` bump
 pointer.  Here every tensor below has a fixed shape, allocated once by
 ``init_state``; "allocation" is index arithmetic on ``cur_p`` (plus a free
-stack fed by rearrangement).  The insert path writes into these tensors in
-place — the paper's "no realloc, no copy" property, spelled directly.
+stack fed by rearrangement).  Every step (insert, delete, update,
+compaction) writes into these tensors in place and never rebinds a field
+to a new tensor — the paper's "no realloc, no copy" property, spelled
+directly.  It also means a search queued on another CUDA stream keeps
+reading live memory while a step runs, and a tensor's address never
+changes.
 
 Two chain representations are kept simultaneously:
 
@@ -238,14 +242,13 @@ def alloc_available(state: IVFState) -> torch.Tensor:
     return state.free_top + torch.clamp(n_blocks - state.cur_p, min=0)
 
 
-def commit_alloc(state: IVFState, total_new: torch.Tensor) -> dict:
-    """Post-allocation counter updates.  ``total_new`` must be the count of
-    successful allocations, so ``cur_p`` saturates at the pool size."""
+def commit_alloc(state: IVFState, total_new: torch.Tensor) -> None:
+    """Post-allocation counter updates, written in place.  ``total_new``
+    must be the count of successful allocations, so ``cur_p`` saturates at
+    the pool size."""
     n_from_free = torch.minimum(total_new, state.free_top)
-    return dict(
-        free_top=(state.free_top - n_from_free).to(torch.int32),
-        cur_p=(state.cur_p + (total_new - n_from_free)).to(torch.int32),
-    )
+    state.cur_p.copy_(state.cur_p + (total_new - n_from_free))
+    state.free_top.copy_(state.free_top - n_from_free)
 
 
 def capacity_ok(state: IVFState, cfg: PoolConfig) -> bool:

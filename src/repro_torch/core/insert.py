@@ -60,9 +60,15 @@ def insert_payload(
     payload: torch.Tensor,  # [B, D] vectors | [B, M] u8 codes
     new_ids: torch.Tensor,  # [B] global ids
     valid: torch.Tensor | None = None,  # [B] bool — ragged batches (padding)
+    fence=None,
 ) -> IVFState:
     """Insert a batch into the pool.  Updates ``state`` in place (the pool
-    tensors are written, never copied) and returns it."""
+    tensors are written, never copied or rebound) and returns it.
+
+    ``fence()``, when given, is called once right before the first write
+    to the state: everything before it (sort, ranks, allocation
+    arithmetic) only reads the state, so the serving runtime can let it
+    run beside a search and order only the writes after that search."""
     dev = state.device
     b = assign.shape[0]
     tm = cfg.block_size
@@ -129,6 +135,15 @@ def insert_payload(
     jj = j - base[owner]  # index of this new block within its cluster's run
     phys = alloc_blocks(state, j, j_valid)  # NULL past pool capacity
 
+    # quantize-on-insert (int8 flat payloads): rows are encoded once, as
+    # residuals against their coarse centroid (Faiss IVF-SQ by_residual),
+    # before the first write; resident data is never re-encoded or copied
+    if cfg.has_scales:
+        residuals = payload.to(dev, torch.float32) - state.centroids[assign]
+        payload, scales = quantize_int8(residuals)
+    if fence is not None:
+        fence()
+
     # block-table scatter: cluster_blocks[owner, old_nblk[owner] + jj] = phys
     # (failed allocations would write NULL into NULL slots — skipped)
     tbl_cols = old_nblk[owner] + jj
@@ -158,12 +173,7 @@ def insert_payload(
     moff = did % tm
     vec_blk = state.cluster_blocks.long()[assign, torch.clamp(mid, 0, mc - 1)]
     rows_ok = valid & (vec_blk >= 0) & (vec_blk < n_blocks)
-    # quantize-on-insert (int8 flat payloads): rows are encoded once, as
-    # residuals against their coarse centroid (Faiss IVF-SQ by_residual);
-    # resident data is never re-encoded or copied
     if cfg.has_scales:
-        residuals = payload.to(dev, torch.float32) - state.centroids[assign]
-        payload, scales = quantize_int8(residuals)
         _put(state.pool_scales, rows_ok, (vec_blk, moff), scales)
     _put(state.pool_payload, rows_ok, (vec_blk, moff),
          payload.to(dev, state.pool_payload.dtype))
@@ -177,15 +187,13 @@ def insert_payload(
     _put(state.id_map, map_ok, new_ids, loc)
     n_unmapped = (valid & ~map_ok).sum()
 
-    i32 = torch.int32
-    state.cluster_nblocks = new_nblk.to(i32)
-    state.cluster_len = new_len.to(i32)
-    state.new_since_rearrange = (state.new_since_rearrange + counts).to(i32)
-    state.num_vectors = (state.num_vectors + valid.sum()).to(i32)
-    state.num_dropped = (state.num_dropped + n_rejected).to(i32)
-    state.num_unmapped = (state.num_unmapped + n_unmapped).to(i32)
-    for name, value in commit_alloc(state, succ_total).items():
-        setattr(state, name, value)
+    state.cluster_nblocks.copy_(new_nblk)
+    state.cluster_len.copy_(new_len)
+    state.new_since_rearrange.copy_(state.new_since_rearrange + counts)
+    state.num_vectors.copy_(state.num_vectors + valid.sum())
+    state.num_dropped.copy_(state.num_dropped + n_rejected)
+    state.num_unmapped.copy_(state.num_unmapped + n_unmapped)
+    commit_alloc(state, succ_total)
     return state
 
 

@@ -58,8 +58,10 @@ def apply_delete(
     state: IVFState,
     del_ids,  # [B] ids to tombstone (negative = padding)
     valid=None,  # [B] bool, ragged batches (padding)
+    fence=None,
 ) -> IVFState:
-    """Tombstone a batch of ids, in place.
+    """Tombstone a batch of ids, in place.  ``fence()``, when given, is
+    called right before the first write (see ``insert_payload``).
 
     Misses (ids never inserted, already deleted, past ``max_ids``, or
     repeated within the batch, where the first occurrence wins) count in
@@ -85,6 +87,8 @@ def apply_delete(
     sloc = torch.where(hit, loc, 0)
     blk, off = sloc // tm, sloc % tm
 
+    if fence is not None:
+        fence()
     _put(state.pool_live, hit, (blk, off), 0)
     _put(state.id_map, hit, del_ids, NULL)
     # the tombstoned slot's cluster accrues reclamation pressure (the
@@ -92,11 +96,10 @@ def apply_delete(
     owner = state.block_owner[blk].long()
     dead_inc = torch.bincount(owner[hit], minlength=cfg.n_clusters)
     n_hit = hit.sum()
-    i32 = torch.int32
-    state.dead_count = (state.dead_count + dead_inc).to(i32)
-    state.num_vectors = (state.num_vectors - n_hit).to(i32)
-    state.num_deleted = (state.num_deleted + n_hit).to(i32)
-    state.num_missed = (state.num_missed + (valid & ~hit).sum()).to(i32)
+    state.dead_count.copy_(state.dead_count + dead_inc)
+    state.num_vectors.copy_(state.num_vectors - n_hit)
+    state.num_deleted.copy_(state.num_deleted + n_hit)
+    state.num_missed.copy_(state.num_missed + (valid & ~hit).sum())
     return state
 
 

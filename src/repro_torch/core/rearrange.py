@@ -15,7 +15,7 @@ static shapes; the port gathers the chain's own ``nblk * T`` rows, which
 gives the same state.  It writes the state's tensors in place and decides
 on the host whether a pass runs, where the reference selects the new state
 under ``jnp.where(triggered, ...)``: a pass that triggers nothing leaves the
-state untouched.
+state untouched.  Like every step, a pass never rebinds a state field.
 """
 
 from __future__ import annotations
@@ -116,9 +116,8 @@ def rearrange_cluster(cfg: PoolConfig, state: IVFState, cluster: int) -> IVFStat
     state.cluster_len[k] = n_live
     state.dead_count[k] = 0
     state.new_since_rearrange[k] = 0
-    state.free_top = torch.tensor(free_top + nblk, dtype=torch.int32, device=dev)
-    state.cur_p = torch.tensor(cur_p + (new_nblk if bump_ok else 0),
-                               dtype=torch.int32, device=dev)
+    state.free_top.fill_(free_top + nblk)
+    state.cur_p.fill_(cur_p + (new_nblk if bump_ok else 0))
     return state
 
 

@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -29,7 +30,11 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",  # registers, shared memory and spills, kept in the log
 ]
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[str, ctypes.CDLL] = {}  # guarded-by: LOCK
+#: held around build, load and signature setup: two serving lanes' first
+#: launches must not both run nvcc for one source or both set a ctypes
+#: entry's argtypes
+LOCK = threading.RLock()
 
 
 def sources() -> list[str]:
@@ -98,8 +103,10 @@ def build_log(name: str) -> str:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    if name not in _loaded:
-        build([name])
-        _loaded[name] = ctypes.CDLL(str(library_path(name)))
-    return _loaded[name]
+    """The loaded library of ``csrc/<name>.cu``, built first if needed
+    (once, whichever thread asks first)."""
+    with LOCK:
+        if name not in _loaded:
+            build([name])
+            _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        return _loaded[name]

@@ -147,7 +147,7 @@ def coarse_topk(
     launch.run("coarse_topk", "coarse_topk_f32", dev, queries.data_ptr(),
                centroids.data_ptr(), q, n, d, nprobe, qt, seg, chunk, s,
                partial.data_ptr(), out_i.data_ptr(), out_d.data_ptr())
-    LAUNCHES["coarse_topk"] += 1
+    launch.count(LAUNCHES, "coarse_topk")
     return out_i, out_d
 
 
@@ -233,7 +233,7 @@ def ivf_block_scan(
                queries.data_ptr(), pool.data_ptr(), q, t, d,
                block_ids.data_ptr(), c, vec, plan["ns"], plan["slab"],
                plan["workers"], qn.data_ptr(), out.data_ptr())
-    LAUNCHES[f"ivf_block_scan[{_DTYPE_NAME[pool.dtype]}]"] += 1
+    launch.count(LAUNCHES, f"ivf_block_scan[{_DTYPE_NAME[pool.dtype]}]")
     return out
 
 
@@ -405,7 +405,7 @@ def ivf_block_topk(
                plan["rows"], plan["list"], plan["seg"], plan["ns"], int(vec),
                members.data_ptr(), counts.data_ptr(), partial.data_ptr(),
                out_d.data_ptr(), out_i.data_ptr())
-    LAUNCHES[f"ivf_block_topk[{_DTYPE_NAME[pool.dtype]}]"] += 1
+    launch.count(LAUNCHES, f"ivf_block_topk[{_DTYPE_NAME[pool.dtype]}]")
     return out_d, out_i
 
 
@@ -435,7 +435,7 @@ def rerank_topk(
                queries.data_ptr(), rows.data_ptr(), scales.data_ptr(),
                loc.data_ptr(), q, kp, d, int(vec), out_d.data_ptr(),
                out_i.data_ptr())
-    LAUNCHES[f"rerank_topk[{_DTYPE_NAME[rows.dtype]}]"] += 1
+    launch.count(LAUNCHES, f"rerank_topk[{_DTYPE_NAME[rows.dtype]}]")
     return out_d, out_i
 
 
@@ -519,7 +519,7 @@ def ivf_block_topk_int8(
                int(vec), members.data_ptr(), mslots.data_ptr(),
                counts.data_ptr(), partial.data_ptr(), out_d.data_ptr(),
                out_i.data_ptr())
-    LAUNCHES["ivf_block_topk_int8"] += 1
+    launch.count(LAUNCHES, "ivf_block_topk_int8")
     return out_d, out_i
 
 
@@ -584,5 +584,5 @@ def ivf_pq_block_topk(
                plan["nt"], ub, members.data_ptr(), mslots.data_ptr(),
                counts.data_ptr(), partial.data_ptr(), out_d.data_ptr(),
                out_i.data_ptr())
-    LAUNCHES["ivf_pq_block_topk"] += 1
+    launch.count(LAUNCHES, "ivf_pq_block_topk")
     return out_d, out_i

@@ -2,7 +2,8 @@
 ``pq_adc.py``, ``paged_attention.py``).
 
 ``check`` holds a wrapper's argument to the kernel's device, dtype, shape
-and contiguity; ``run`` loads the source's library (``build.library``,
+and contiguity; ``count`` adds a launch to a wrapper's ``LAUNCHES`` under
+a lock; ``run`` loads the source's library (``build.library``,
 nvcc at first use), calls the entry point on the current stream and raises
 if it returns a CUDA error.  Each entry point's C signature is listed in
 ``SIGNATURES``, the stream (its last argument) included: ctypes passes an
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -58,14 +60,25 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+_COUNT_LOCK = threading.Lock()
+
+
+def count(launches: dict, key: str) -> None:
+    """Add one launch to ``launches[key]``: under a lock, since two
+    serving lanes launch at once and a bare ``+= 1`` can lose counts."""
+    with _COUNT_LOCK:
+        launches[key] += 1
+
+
 def _entry(source: str, symbol: str):
-    lib = build.library(source)
-    fn = getattr(lib, symbol)
-    if fn.argtypes is None:
-        fn.argtypes = SIGNATURES[symbol]
-        fn.restype = ctypes.c_int
-        lib.kernel_error_string.argtypes = [ctypes.c_int]
-        lib.kernel_error_string.restype = ctypes.c_char_p
+    with build.LOCK:  # load and signature setup once, by one thread
+        lib = build.library(source)
+        fn = getattr(lib, symbol)
+        if fn.argtypes is None:
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            fn.restype = ctypes.c_int
+            fn.argtypes = SIGNATURES[symbol]
     return lib, fn
 
 

@@ -173,5 +173,5 @@ def paged_decode_attention(
         h // kvh, nb, plan["bps"], plan["s"], plan["ns"], scale,
         partial.data_ptr(), out.data_ptr(),
     )
-    LAUNCHES["paged_decode_attention"] += 1
+    launch.count(LAUNCHES, "paged_decode_attention")
     return out

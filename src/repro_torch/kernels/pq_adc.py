@@ -73,5 +73,5 @@ def pq_adc(
     launch.run("pq_adc", "pq_adc_f32", lut.device, lut.data_ptr(), ptr, r, n, m,
                ub, int(lut.data_ptr() % 16 == 0), plan["nc"], plan["rpc"],
                plan["ipb"], plan["grid"], out.data_ptr())
-    LAUNCHES["pq_adc"] += 1
+    launch.count(LAUNCHES, "pq_adc")
     return out
