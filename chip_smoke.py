@@ -101,6 +101,7 @@ RUNTIME_CHECK_BATCH, RUNTIME_ACKED_SAMPLE = 64, 512
 RUNTIME_MIX_LISTS = 12  # lists whose every live id the mixed run deletes
 RUNTIME_MIX_RPS = 40  # deletes and updates of 16 ids a second each
 RUNTIME_MIX_UPDATES = 8_192
+F32_KERNELS = ("coarse_topk", "ivf_block_topk[float32]")  # f32 runtime runs
 # the [pq] phase: the DSSM deployment's corpus and its cuts
 N_PQ_ROWS = 40_000_000
 PQ_TRAIN_ROWS = 1_280_000  # k-means sample: 8 rows per list
@@ -900,6 +901,40 @@ def _device_events_per_dispatch(rt, one, fresh, n: int = 20) -> dict:
     }
 
 
+def runtime_served_all(tag: str, futures, rt) -> dict:
+    """Raise unless every accepted request of a run resolved without an
+    exception and the runtime counted no failure: no poisoned request, no
+    isolation retry, no fused fallback, no worker restart.  A rejection
+    happens at submit, so a rejected request is never among ``futures``.
+    Returns the runtime's stats, read once every future resolved."""
+    from concurrent.futures import TimeoutError as FutureTimeout
+
+    failed = []
+    for f in futures:
+        try:
+            e = f.exception(timeout=60)
+        except FutureTimeout:
+            e = "unresolved after 60 s"
+        if e is not None:
+            failed.append(repr(e))
+    check(not failed, f"runtime {tag}: {len(failed)} of {len(futures)} "
+          f"requests failed: {failed[:3]}")
+    stats = rt.stats()
+    bad = {k: stats[k] for k in ("poisoned", "isolations", "fused_fallbacks",
+                                 "worker_restarts") if stats[k]}
+    check(not bad, f"runtime {tag}: {bad}")
+    return stats
+
+
+def runtime_launches(tag: str, counts: dict, kernels) -> dict:
+    """The kernels launched by one run (counted from 0 just before its
+    traffic, read once it drained); raises unless each of ``kernels``
+    launched."""
+    for name in kernels:
+        check(counts[name] > 0, f"runtime {tag}: kernel {name} never launched")
+    return {k: v for k, v in counts.items() if v}
+
+
 def runtime_dispatch(index, queries, fresh, reps: int = 100) -> None:
     """Closed loop, one request at a time, each awaited: the host cost of a
     search dispatch through ``ServingRuntime`` (one query, and ten rows in
@@ -958,12 +993,15 @@ def runtime_dispatch(index, queries, fresh, reps: int = 100) -> None:
     log("runtime-dispatch", reps=reps, unit="ms p50, p99", **fields)
 
 
-def runtime_run(index, queries, fresh, *, tag, mode, qps, seconds,
+def runtime_run(index, queries, fresh, *, tag, mode, qps, seconds, kernels,
                 rerank=False, vmax=1.0, found="rank0") -> dict:
     """One open-loop run of single-query searches at ``qps`` and 16-row
     inserts at RUNTIME_INSERT_RPS through ``ServingRuntime`` (the paper's
     §3.3 settings: its defaults) on ``index``, its last second profiled;
-    prints a [runtime] line.  Then it checks, raising on failure: a batch
+    prints a [runtime] line.  Then it checks, raising on failure: every
+    request of the run served without an exception or a failure counter,
+    each of ``kernels`` launched by the run's traffic (counted from 0 just
+    before it, read once it drained, before any direct call), a batch
     of RUNTIME_CHECK_BATCH queries through the runtime against
     ``search_union_fused`` called directly on the same state with the same
     budget (the tie rule), and RUNTIME_ACKED_SAMPLE acked inserts found
@@ -975,7 +1013,7 @@ def runtime_run(index, queries, fresh, *, tag, mode, qps, seconds,
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.runtime import RuntimeConfig, ServingRuntime
     from repro_torch.core.search import search_union_fused
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.launch.serve import drive
 
     t_run = time.perf_counter()
@@ -996,6 +1034,7 @@ def runtime_run(index, queries, fresh, *, tag, mode, qps, seconds,
                 warmup=False, queries=queries, fresh=fresh, sent=sent)
 
         generator = threading.Thread(target=run)
+        ops.reset_launch_counts()
         generator.start()
         t_end = time.perf_counter() + 120
         while not sent:  # past the warm-up
@@ -1013,7 +1052,8 @@ def runtime_run(index, queries, fresh, *, tag, mode, qps, seconds,
         prof_ms = (t_stop - t0) * 1e3
         generator.join(seconds + 120)
         check(not generator.is_alive(), f"runtime {tag}: the load generator hung")
-        stats = rt.stats()
+        stats = runtime_served_all(tag, [f for _, _, f in sent], rt)
+        launched = runtime_launches(tag, ops.launch_counts(), kernels)
         # the runtime against the direct call, on the drained state
         cq = queries[:RUNTIME_CHECK_BATCH]
         d_rt, i_rt = rt.submit_search(cq).result(timeout=60)
@@ -1031,8 +1071,7 @@ def runtime_run(index, queries, fresh, *, tag, mode, qps, seconds,
                                  d_dir.cpu(), i_dir.cpu(), rtol=1e-5, atol=atol)
     check(not faults, f"runtime {tag}: runtime vs direct search: {faults[:3]}")
     # every acked insert is found for its own vector
-    acked = [(v, f.result()) for kind, v, f in sent
-             if kind == "insert" and f.exception() is None]
+    acked = [(v, f.result()) for kind, v, f in sent if kind == "insert"]
     vecs = np.concatenate([v for v, _ in acked])
     ids = np.concatenate([i for _, i in acked])
     pick = np.random.default_rng(0).choice(
@@ -1048,8 +1087,7 @@ def runtime_run(index, queries, fresh, *, tag, mode, qps, seconds,
           f"inserts not found ({found})")
     check(stats["num_dropped"] == 0, f"runtime {tag}: inserts dropped")
     # served, rejected and latencies over the measured window
-    served = sum(1 for kind, _, f in sent
-                 if kind == "search" and f.exception() is None)
+    served = sum(1 for kind, _, _ in sent if kind == "search")
     p = stats["percentiles"]
     by_stream = _device_streams(prof, prof_ms * 1e3)
     busy_ms = _intervals_ms(by_stream.pop("all"))
@@ -1073,11 +1111,12 @@ def runtime_run(index, queries, fresh, *, tag, mode, qps, seconds,
                       for k, s in lanes.items()},
         profiler_streams={str(k): [len(v), round(_intervals_ms(v), 3)]
                           for k, v in streams},
-        budget=budget, run_s=round(time.perf_counter() - t_run, 1), **fields)
-    return {"lanes": lanes, "stats": stats}
+        budget=budget, run_s=round(time.perf_counter() - t_run, 1),
+        launches=launched, **fields)
+    return {"lanes": lanes, "stats": stats, "launches": launched}
 
 
-def runtime_mixed(index, queries, fresh, upd_vecs, *, seconds, qps) -> None:
+def runtime_mixed(index, queries, fresh, upd_vecs, *, seconds, qps) -> dict:
     """One parallel run with deletes and updates mixed into the searches
     and inserts, auto-compaction on.  The deletes take every live id of
     RUNTIME_MIX_LISTS lists (so their dead fraction crosses the trigger
@@ -1085,11 +1124,14 @@ def runtime_mixed(index, queries, fresh, upd_vecs, *, seconds, qps) -> None:
     other live ids.  Half the searches ask for the vectors of ids whose
     delete was already acked.  Checks: no result row holds an id twice
     (the signature of a torn update), and no id whose delete was acked
-    before a search was submitted appears in that search's result."""
+    before a search was submitted appears in that search's result; every
+    request served, and the search kernels launched by the run's traffic.
+    Returns those launches."""
     import numpy as np
     import torch
     from repro_torch.core.admission import RequestRejected
     from repro_torch.core.runtime import RuntimeConfig, ServingRuntime
+    from repro_torch.kernels import ops
 
     torch.cuda.synchronize()
     st = index.state
@@ -1112,6 +1154,7 @@ def runtime_mixed(index, queries, fresh, upd_vecs, *, seconds, qps) -> None:
     try:
         rt.submit_search(queries[:1]).result(timeout=60)
         rt.reset_stats()
+        ops.reset_launch_counts()
         t_end = time.perf_counter() + seconds
         nxt = dict.fromkeys(("s", "i", "d", "u"), time.perf_counter())
         n = dict.fromkeys(("i", "d", "u"), 0)
@@ -1150,9 +1193,9 @@ def runtime_mixed(index, queries, fresh, upd_vecs, *, seconds, qps) -> None:
                 n["u"] += 16
                 nxt["u"] += rng.exponential(1.0 / RUNTIME_MIX_RPS)
             time.sleep(0.0005)
-        for f in futs + deletes + [f for _, f in searches]:
-            check(f.exception(timeout=60) is None, f"runtime mix: {f.exception()}")
-        stats = rt.stats()
+        stats = runtime_served_all(
+            "mix", futs + deletes + [f for _, f in searches], rt)
+        launched = runtime_launches("mix", ops.launch_counts(), F32_KERNELS)
     finally:
         rt.stop()
     acked.sort(key=lambda a: a[0])
@@ -1177,7 +1220,8 @@ def runtime_mixed(index, queries, fresh, upd_vecs, *, seconds, qps) -> None:
         search_p99_ms=round(p["search"]["p99_ms"], 3),
         mutation_ack_p50_ms=round(p["mutation"]["p50_ms"], 3),
         mutation_ack_p99_ms=round(p["mutation"]["p99_ms"], 3),
-        ids_twice_in_a_row=twice, acked_deleted_ids_served=served_deleted)
+        ids_twice_in_a_row=twice, acked_deleted_ids_served=served_deleted,
+        launches=launched)
     check(twice == 0, f"runtime mix: {twice} ids served twice in one row")
     check(served_deleted == 0,
           f"runtime mix: {served_deleted} ids served after their delete was acked")
@@ -1186,6 +1230,7 @@ def runtime_mixed(index, queries, fresh, upd_vecs, *, seconds, qps) -> None:
           f"runtime mix: deletes {stats['deletes']}/{n_del}, "
           f"updates {stats['updates']}/{n_upd}")
     check(stats["compactions"] > 0, "runtime mix: no compaction pass ran")
+    return launched
 
 
 def phase_runtime(indexes, queries, vmax, dim) -> None:
@@ -1193,12 +1238,13 @@ def phase_runtime(indexes, queries, vmax, dim) -> None:
     of RUNTIME_QPS offered searches a second with 4,000 inserted rows a
     second, then the mixed run with deletes, updates and compaction, then a
     re-ranked run on the int8 index; the kernels of those paths must have
-    launched."""
+    launched, counted over the runs' traffic alone."""
+    import collections
+
     from repro_torch.data.synthetic import sift_like
-    from repro_torch.kernels import ops
 
     t_phase = time.perf_counter()
-    ops.reset_launch_counts()
+    counts = collections.Counter()
     n_fresh = int(16 * RUNTIME_INSERT_RPS * RUNTIME_SECONDS * 1.5) + 64
     runtime_dispatch(indexes["float32"], queries, sift_like(n_fresh, dim, seed=9))
     seed = 10
@@ -1209,22 +1255,26 @@ def phase_runtime(indexes, queries, vmax, dim) -> None:
             out = runtime_run(indexes["float32"], queries,
                               sift_like(n_fresh, dim, seed=seed),
                               tag=f"sift1m-f32-{qps}", mode=mode, qps=qps,
-                              seconds=RUNTIME_SECONDS, vmax=vmax)
+                              seconds=RUNTIME_SECONDS, vmax=vmax,
+                              kernels=F32_KERNELS)
             lanes[mode] = out["lanes"]
+            counts.update(out["launches"])
     s, m = lanes["parallel"]["search"], lanes["parallel"]["mutation"]
     check(s is not None and m is not None and s.stream_id != m.stream_id,
           "parallel: the lanes share a stream")
     default = __import__("torch").cuda.default_stream()
     check(default.stream_id not in (s.stream_id, m.stream_id),
           "parallel: a lane issues on the default stream")
-    runtime_mixed(indexes["float32"], queries, sift_like(n_fresh, dim, seed=20),
-                  sift_like(RUNTIME_MIX_UPDATES, dim, seed=21),
-                  seconds=RUNTIME_SHORT_SECONDS, qps=RUNTIME_QPS[0])
-    runtime_run(indexes["int8"], queries, sift_like(n_fresh, dim, seed=22),
-                tag="sift1m-int8-rerank", mode="parallel", qps=RUNTIME_QPS[0],
-                seconds=RUNTIME_SHORT_SECONDS, rerank=True, vmax=vmax,
-                found="top_k")
-    counts = ops.launch_counts()
+    counts.update(runtime_mixed(
+        indexes["float32"], queries, sift_like(n_fresh, dim, seed=20),
+        sift_like(RUNTIME_MIX_UPDATES, dim, seed=21),
+        seconds=RUNTIME_SHORT_SECONDS, qps=RUNTIME_QPS[0]))
+    counts.update(runtime_run(
+        indexes["int8"], queries, sift_like(n_fresh, dim, seed=22),
+        tag="sift1m-int8-rerank", mode="parallel", qps=RUNTIME_QPS[0],
+        seconds=RUNTIME_SHORT_SECONDS, rerank=True, vmax=vmax, found="top_k",
+        kernels=("coarse_topk", "ivf_block_topk_int8",
+                 "rerank_topk[float32]"))["launches"])
     log("kernels", path="runtime", **counts)
     for name in ("coarse_topk", "ivf_block_topk[float32]",
                  "ivf_block_topk_int8", "rerank_topk[float32]"):
@@ -1562,18 +1612,13 @@ def phase_pq(device, n_rows: int = N_PQ_ROWS, scale: float = 1.0):
             (found[:, 0] == upd_ids).mean()), 4),
         live_vectors=index.stats()["live_vectors"])
     # the serving runtime on the DSSM index, re-ranked
-    before = ops.launch_counts()
-    runtime_run(index, queries, dssm_rows(
+    out = runtime_run(index, queries, dssm_rows(
         int(16 * RUNTIME_INSERT_RPS * RUNTIME_SHORT_SECONDS * 1.5) + 64, cfg.dim,
         seed=1, device=device, stream=2).cpu().numpy(),
         tag="dssm-pq-rerank", mode="parallel", qps=RUNTIME_QPS[0],
-        seconds=RUNTIME_SHORT_SECONDS, rerank=True, found="top_k")
-    grew = {k: v - before[k] for k, v in ops.launch_counts().items()
-            if v > before[k]}
-    log("kernels", path="runtime-pq", **grew)
-    for name in ("coarse_topk", "ivf_pq_block_topk", "rerank_topk[float32]"):
-        check(grew.get(name, 0) > 0, f"kernel {name} never launched in the "
-              "DSSM runtime run")
+        seconds=RUNTIME_SHORT_SECONDS, rerank=True, found="top_k",
+        kernels=("coarse_topk", "ivf_pq_block_topk", "rerank_topk[float32]"))
+    log("kernels", path="runtime-pq", **out["launches"])
     log("pq", seconds=round(time.perf_counter() - t_phase, 1))
     return records
 

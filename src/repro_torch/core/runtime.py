@@ -44,6 +44,12 @@ all of a batch or none of it.
   ``insert_payload``/``apply_delete``).  The read-only front of a step
   (cluster assignment, the sort and ranks, PQ encoding or int8
   quantization, the allocation arithmetic) runs beside a search.
+* One writer at a time: every mutation step, front included, and every
+  compaction pass holds ``_write_lock`` (taken before ``_state_lock``).
+  The front reads lengths and the free stack, so no other writer may
+  land between it and the fence: in ``fused`` mode the search thread's
+  standalone runs and the insert thread's lull compaction both write,
+  and so does a drain on stop.
 * Compaction moves rows, so each pass is ordered against searches both
   ways.
 
@@ -754,6 +760,9 @@ class ServingRuntime:
         self.pool_cfg = index.pool_cfg
         self._faults = faults if faults is not None else NO_FAULTS
         self._state_lock = _FifoLock()
+        # one writer of the state at a time, a step's read-only front
+        # included; taken before _state_lock, never after it
+        self._write_lock = threading.Lock()
         # the lanes' streams on the index's device: serial mode issues
         # everything on one, parallel and fused on one each
         self._s_lane = _Lane(index.device)
@@ -957,21 +966,23 @@ class ServingRuntime:
     def _mutate(self, kind: str, args: tuple, *, locked: bool = False,
                 before=None):
         """Run one mutation step on the mutation stream and record its
-        event; returns the event (``None`` on the CPU).  ``_state_lock``
-        is taken at the step's fence (``locked``: the caller holds it)."""
-        fence = _Fence(self, take_lock=not locked, before=before)
-        try:
-            with self._m_lane.scope():
-                dev = [self._to_device(a) for a in args]
-                self._mutation_fns[kind](self.index.state, *dev, fence)
-                fence()  # a step that wrote nothing still orders
-        finally:
-            if fence.entered:
-                # later searches wait on whatever the step enqueued, even
-                # when it failed midway
-                ev = self._mutation_event = self._m_lane.record()
-                self._budget = None  # chains may have grown
-            fence.close()
+        event; returns the event (``None`` on the CPU).  The step holds
+        ``_write_lock`` throughout and takes ``_state_lock`` at its fence
+        (``locked``: the caller holds both)."""
+        with contextlib.nullcontext() if locked else self._write_lock:
+            fence = _Fence(self, take_lock=not locked, before=before)
+            try:
+                with self._m_lane.scope():
+                    dev = [self._to_device(a) for a in args]
+                    self._mutation_fns[kind](self.index.state, *dev, fence)
+                    fence()  # a step that wrote nothing still orders
+            finally:
+                if fence.entered:
+                    # later searches wait on whatever the step enqueued,
+                    # even when it failed midway
+                    ev = self._mutation_event = self._m_lane.record()
+                    self._budget = None  # chains may have grown
+                fence.close()
         return ev
 
     def _current_budget(self) -> int:  # holds: _state_lock
@@ -1055,6 +1066,7 @@ class ServingRuntime:
             _search = self._make_search(budget, nprobe, rerank)
 
             def _fused(queries, qvalid, m_args):
+                # called holding _write_lock and _state_lock
                 # one dispatch, two streams: the run's read-only front on
                 # the mutation stream, the search on the search stream at
                 # the run's fence, the run's writes after the search — so
@@ -1627,7 +1639,7 @@ class ServingRuntime:
 
     def _maybe_compact(self):
         """Opportunistic dead-space reclamation on the mutation lane (the
-        caller holds no lock; passes run under it, on the mutation stream,
+        caller holds no lock; passes run under both, on the mutation stream,
         each ordered after the searches dispatched before it and before
         the searches dispatched after it: compaction moves rows).  Uses the
         index's rearrange step, whose trigger covers both the paper's
@@ -1647,10 +1659,10 @@ class ServingRuntime:
             return
         with self._m_lane.scope():
             if self.cfg.adaptive:
-                with self._state_lock:
-                    st = self.index.state
-                # read on the mutation stream: after every mutation
-                dead = float(dead_fraction(st))
+                # read on the mutation stream between whole steps: after
+                # every mutation, never inside another writer's step
+                with self._write_lock:
+                    dead = float(dead_fraction(self.index.state))
                 if not self._controller.should_compact(dead):
                     self._counters.inc("compactions_deferred")
                     self._events.record_event(
@@ -1659,7 +1671,7 @@ class ServingRuntime:
                     return
             passes = 0
             for _ in range(max(self.cfg.compact_passes, 0)):
-                with self._state_lock:
+                with self._write_lock, self._state_lock:
                     self._order_after_searches()
                     _, triggered = fn(self.index.state)  # in place
                     self._mutation_event = self._m_lane.record()
@@ -2046,7 +2058,7 @@ class ServingRuntime:
                 with self._s_lane.scope():
                     q_dev = self._to_device(pq_)
                     v_dev = self._to_device(qvalid)
-                with self._state_lock:
+                with self._write_lock, self._state_lock:
                     base = self._order_after_mutations()
                     now = time.perf_counter()
                     age = now - min(x.t_arrival for x in s_items)

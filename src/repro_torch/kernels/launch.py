@@ -4,8 +4,8 @@
 ``check`` holds a wrapper's argument to the kernel's device, dtype, shape
 and contiguity; ``count`` adds a launch to a wrapper's ``LAUNCHES`` under
 a lock; ``run`` loads the source's library (``build.library``,
-nvcc at first use), calls the entry point on the current stream and raises
-if it returns a CUDA error.  Each entry point's C signature is listed in
+nvcc at first use) and sets up its entry point once, then calls it on the
+current stream and raises if it returns a CUDA error.  Each entry point's C signature is listed in
 ``SIGNATURES``, the stream (its last argument) included: ctypes passes an
 argument past the list as a C int, which leaves the upper half of a
 pointer undefined.
@@ -70,16 +70,23 @@ def count(launches: dict, key: str) -> None:
         launches[key] += 1
 
 
+_BOUND: dict = {}  # (source, symbol) -> (library, entry), set up once
+
+
 def _entry(source: str, symbol: str):
-    with build.LOCK:  # load and signature setup once, by one thread
-        lib = build.library(source)
-        fn = getattr(lib, symbol)
-        if fn.argtypes is None:
-            lib.kernel_error_string.argtypes = [ctypes.c_int]
-            lib.kernel_error_string.restype = ctypes.c_char_p
-            fn.restype = ctypes.c_int
-            fn.argtypes = SIGNATURES[symbol]
-    return lib, fn
+    bound = _BOUND.get((source, symbol))
+    if bound is None:
+        with build.LOCK:  # load and signature setup once, by one thread
+            bound = _BOUND.get((source, symbol))
+            if bound is None:
+                lib = build.library(source)
+                fn = getattr(lib, symbol)
+                lib.kernel_error_string.argtypes = [ctypes.c_int]
+                lib.kernel_error_string.restype = ctypes.c_char_p
+                fn.restype = ctypes.c_int
+                fn.argtypes = SIGNATURES[symbol]
+                bound = _BOUND[(source, symbol)] = (lib, fn)
+    return bound
 
 
 def run(source: str, symbol: str, device: torch.device, *args) -> None:

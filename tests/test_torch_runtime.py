@@ -752,6 +752,7 @@ def test_kernel_library_built_and_bound_once_by_two_threads(monkeypatch,
                         lambda name: tmp_path / f"lib{name}.so")
     monkeypatch.setattr(build.ctypes, "CDLL", _FakeLibrary)
     monkeypatch.setattr(build, "_loaded", {})
+    monkeypatch.setattr(launch, "_BOUND", {})
     barrier = threading.Barrier(2)
     got = []
 

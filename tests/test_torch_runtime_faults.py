@@ -591,6 +591,83 @@ def test_mixed_kind_arrival_order_never_reorders(base_index):
         rt.stop()
 
 
+class _Watched:
+    """The runtime's writer lock, noting each thread that comes to take
+    it before it blocks there."""
+
+    def __init__(self, lock):
+        self.lock = lock
+        self.entering: list = []
+
+    def locked(self) -> bool:
+        return self.lock.locked()
+
+    def __enter__(self):
+        self.entering.append(threading.current_thread())
+        return self.lock.__enter__()
+
+    def __exit__(self, *exc):
+        return self.lock.__exit__(*exc)
+
+
+def test_fused_compaction_never_lands_inside_a_lone_run(monkeypatch):
+    """Fused mode has two writers: the search thread applies a mutation
+    run that found no search to pair with, and the insert thread runs
+    compaction passes in a lull.  A lone insert is parked between its
+    read-only front and its fence (where it first writes) while a
+    compaction pass starts; the pass must wait for the whole insert, or
+    the insert writes with the lengths and free-stack pops it read before
+    the pass.  Then the state holds its invariants and every live id is
+    found for its own vector."""
+    from repro_torch.core import block_pool as tbp
+    from repro_torch.core import runtime as rtmod
+
+    x = _data(1200, seed=5)
+    index = build_ivf(x, n_clusters=4, block_size=16, max_chain=64,
+                      add_batch=256, capacity_vectors=8000, nprobe=4, k=5,
+                      device="cpu", dead_frac_threshold=0.1)
+    assert index.delete(np.arange(0, 1200, 2, dtype=np.int32)) == 600
+    rt = ServingRuntime(index, RuntimeConfig(
+        mode="fused", nprobe=4, k=5, flush_min=1, flush_interval=0.02))
+    watched = rt._write_lock = _Watched(rt._write_lock)
+    at_fence, passes_done = threading.Event(), threading.Event()
+
+    def compact():
+        at_fence.wait(WAIT)
+        rt._maybe_compact()
+        passes_done.set()
+
+    compactor = threading.Thread(target=compact)
+    fence = rtmod._Fence.__call__
+
+    def parked(self):
+        if not self.entered and not at_fence.is_set():
+            at_fence.set()  # the front is done; nothing is written yet
+            _until(lambda: passes_done.is_set()
+                   or (compactor in watched.entering and watched.locked()),
+                   "the compaction pass neither ran nor waited")
+        fence(self)
+
+    monkeypatch.setattr(rtmod._Fence, "__call__", parked)
+    compactor.start()
+    fresh = _data(64, seed=6)
+    try:
+        fut = rt.submit_insert(fresh)
+        assert _resolved(fut) is None
+        new_ids = fut.result()
+        compactor.join(WAIT)
+        assert passes_done.is_set()
+        assert rt.stats()["compactions"] > 0
+    finally:
+        rt.stop()
+        at_fence.set()
+        compactor.join(WAIT)
+    tbp.check_invariants(index.state, index.pool_cfg)
+    vecs = np.concatenate([x[1::2], fresh])
+    ids = np.concatenate([np.arange(1, 1200, 2), new_ids])
+    assert (index.search(vecs)[1][:, 0] == ids).all()
+
+
 # ------------------------------------------------------ degradation ladder --
 def test_ladder_unit_hysteresis_and_params():
     lad = DegradationLadder(("no_rerank", "half_nprobe", "half_budget"),
