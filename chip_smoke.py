@@ -48,6 +48,18 @@ the contiguous-cache decode on the same tokens and records the kernel at
 the served shapes, at a 32,768-position context, and at pool blocks of 64
 positions and a GQA group of 16 heads.
 
+After ``[runtime]``, the ``[durability]`` phase serves the churned float32
+SIFT1M index through a fused-mode ``ServingRuntime`` with a mutation WAL
+(an fsync per record) and snapshots in a fresh temporary directory: the
+pre-traffic snapshot, 4 s of the mixed run's traffic with a snapshot cut
+at 2 s, then a crash (the runtime is abandoned) and
+``ServingRuntime.recover``.  It prints the snapshot seconds and bytes, the
+search p50/p99 inside and outside the cut, the recovery time by stage and
+the replay rate, and checks that no acked row was lost, no acked delete
+is resident, the recovered top-10 equals the crashed index's up to ties,
+the exporters parse, and the recovered runtime's ``stop()`` writes one
+shutdown bundle.
+
 Phases print one line each.  The second-to-last line is the per-kernel
 JSON record (launches on the main path, error against the plain version,
 median ms of kernel and plain version, the card's bound); the [serve]
@@ -102,6 +114,13 @@ RUNTIME_MIX_LISTS = 12  # lists whose every live id the mixed run deletes
 RUNTIME_MIX_RPS = 40  # deletes and updates of 16 ids a second each
 RUNTIME_MIX_UPDATES = 8_192
 F32_KERNELS = ("coarse_topk", "ivf_block_topk[float32]")  # f32 runtime runs
+# the [durability] phase: a fused-mode runtime with a WAL and snapshots on
+# the churned float32 index, the [runtime] mixed run's traffic for
+# DURABILITY_SECONDS, a snapshot cut DURABILITY_CUT_AT seconds in
+DURABILITY_SECONDS, DURABILITY_CUT_AT = 4.0, 2.0
+# a snapshot holds the whole state: the phase keeps at most three
+# (CheckpointManager's keep) and writes one more after recovery
+DURABILITY_DISK_SNAPSHOTS = 3.2
 # the [pq] phase: the DSSM deployment's corpus and its cuts
 N_PQ_ROWS = 40_000_000
 PQ_TRAIN_ROWS = 1_280_000  # k-means sample: 8 rows per list
@@ -1282,6 +1301,349 @@ def phase_runtime(indexes, queries, vmax, dim) -> None:
     log("runtime-phase", seconds=round(time.perf_counter() - t_phase, 1))
 
 
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def _p(xs, q) -> float:
+    import numpy as np
+
+    return round(float(np.percentile(xs, q)), 3) if len(xs) else float("nan")
+
+
+def durability_traffic(rt, queries, mix, tag, cut_at=None) -> dict:
+    """DURABILITY_SECONDS of the [runtime] mixed run's traffic on ``rt``
+    through ``launch.serve.drive``: single-query searches at
+    RUNTIME_QPS[0], inserts of 16 rows at RUNTIME_INSERT_RPS, deletes and
+    updates of 16 ids at RUNTIME_MIX_RPS each from ``mix``.  Launches are
+    counted from 0 over it; each WAL append (an fsync a record) and each
+    compaction opportunity is timed on the host's clock.  ``cut_at``:
+    seconds in, ``snapshot(wait=False)``.  Raises unless every request was
+    served and the search kernels launched."""
+    import threading
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import drive
+
+    rt.submit_search(queries[:1]).result(timeout=60)  # warm-up
+    rt.reset_stats()
+    out = {"sent": [], "stamps": [], "spent": {"append": [], "compact": []}}
+
+    def timed(fn, key):
+        def call(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                out["spent"][key].append((time.perf_counter() - t) * 1e3)
+        return call
+
+    if rt._wal is not None:
+        rt._wal.append = timed(rt._wal.append, "append")
+    rt._maybe_compact = timed(rt._maybe_compact, "compact")
+    started = threading.Event()
+
+    def run():
+        out["t0"] = time.perf_counter()
+        started.set()
+        out["rejected"] = drive(
+            rt, queries, qps_search=RUNTIME_QPS[0],
+            qps_insert=16 * RUNTIME_INSERT_RPS, duration=DURABILITY_SECONDS,
+            warmup=False, queries=queries, fresh=mix["fresh"],
+            sent=out["sent"], stamps=out["stamps"],
+            qps_delete=16 * RUNTIME_MIX_RPS, delete_ids=mix["delete_ids"],
+            qps_update=16 * RUNTIME_MIX_RPS, update_ids=mix["update_ids"],
+            update_vecs=mix["update_vecs"])
+
+    generator = threading.Thread(target=run)
+    ops.reset_launch_counts()
+    generator.start()
+    check(started.wait(60), f"{tag}: the load generator never started")
+    if cut_at is not None:
+        time.sleep(max(0.0, out["t0"] + cut_at - time.perf_counter()))
+        out["t_cut0"] = time.perf_counter()
+        out["cut_lsn"] = rt.snapshot(wait=False)
+        out["t_cut1"] = time.perf_counter()
+    generator.join(DURABILITY_SECONDS + 120)
+    check(not generator.is_alive(), f"{tag}: the load generator hung")
+    out["stats"] = runtime_served_all(tag, [f for *_, f in out["sent"]], rt)
+    out["launches"] = runtime_launches(tag, ops.launch_counts(), F32_KERNELS)
+    return out
+
+
+def phase_durability(index, queries, vmax, dim) -> None:
+    """Durability at the SIFT1M deployment, on the churned float32 index: a
+    fused-mode ``ServingRuntime`` with ``persist_dir`` (a fresh temporary
+    directory, deleted at the end) and ``wal_sync_interval=1`` publishes
+    the pre-traffic snapshot, serves the [runtime] mixed run's traffic
+    through ``launch.serve.drive`` (single-query searches at
+    RUNTIME_QPS[0], inserts of 16 rows at RUNTIME_INSERT_RPS, deletes of
+    every live id of RUNTIME_MIX_LISTS lists and updates of other ids, 16
+    at RUNTIME_MIX_RPS each, auto-compaction on) and cuts a snapshot
+    DURABILITY_CUT_AT seconds in.  Then it crashes (the runtime's lanes
+    stop where they are: no drain, no final fsync, no bundle), recovers
+    with ``ServingRuntime.recover``, and checks, raising on failure: every
+    acked insert and update resident with its vector bit-exact and no
+    acked delete resident, the LSN contract before the crash, the
+    recovered runtime's top-10 on the held-out queries against the
+    crashed index's (up to ties), the search kernels launched by the
+    phase's traffic, the exporters, and one shutdown bundle."""
+    import json
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core.runtime import RuntimeConfig, ServingRuntime
+    from repro_torch.data.synthetic import sift_like
+    from repro_torch.kernels import ref
+    from repro_torch.obs.events import EV_SNAPSHOT_FAILED, EV_SNAPSHOT_PUBLISH
+    from repro_torch.persist import SNAP_SUBDIR, recovery
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    st = index.state
+    state_bytes = sum(getattr(st, f.name).nbytes
+                      for f in dataclasses.fields(st))
+    root = tempfile.mkdtemp(prefix="durability-")
+    free = shutil.disk_usage(root).free
+    log("durability", step="disk", persist_dir=root, free_bytes=free,
+        state_bytes=state_bytes)
+    check(free >= DURABILITY_DISK_SNAPSHOTS * state_bytes,
+          f"durability: {free} bytes free under {root}, the phase writes "
+          f"{DURABILITY_DISK_SNAPSHOTS} x {state_bytes} (snapshots): the "
+          "disk is too small")
+    try:
+        # the mixed run's traffic, on lists and ids it did not touch
+        nonempty = torch.nonzero(st.cluster_nblocks > 0).flatten()
+        del_ids = []
+        for i in (1, 2):
+            lists = nonempty[i * RUNTIME_MIX_LISTS :][:RUNTIME_MIX_LISTS]
+            blocks = st.cluster_blocks[lists].flatten()
+            blocks = blocks[blocks >= 0].long()
+            live = st.pool_live[blocks].flatten() == 1
+            del_ids.append(st.pool_ids[blocks].flatten()[live].cpu().numpy())
+        id_map = st.id_map.cpu().numpy()
+        others = np.setdiff1d(np.flatnonzero(id_map >= 0),
+                              np.concatenate(del_ids))
+        rng = np.random.default_rng(3)
+        upd_ids = rng.choice(others, 2 * RUNTIME_MIX_UPDATES,
+                             replace=False).astype(np.int32)
+        n_fresh = int(16 * RUNTIME_INSERT_RPS * DURABILITY_SECONDS * 1.5) + 64
+        # one mix for the durable run, one for the volatile run before it:
+        # other lists to delete, other ids to update, other fresh rows
+        mixes = [dict(
+            fresh=sift_like(n_fresh, dim, seed=30 + 2 * i),
+            delete_ids=del_ids[i], update_ids=upd_ids[i::2],
+            update_vecs=sift_like(RUNTIME_MIX_UPDATES, dim, seed=31 + 2 * i),
+        ) for i in range(2)]
+        rcfg = RuntimeConfig(
+            mode="fused", nprobe=index.cfg.nprobe, k=index.cfg.k,
+            search_path="union_fused", auto_compact=True,
+            latency_window=10**6, persist_dir=root, wal_sync_interval=1)
+        # the same traffic without durability first, as the yardstick
+        rt = ServingRuntime(index, dataclasses.replace(rcfg,
+                                                       persist_dir=None))
+        try:
+            out = durability_traffic(rt, queries, mixes[1], "volatile")
+        finally:
+            rt.stop()
+        lat = [(d - t) * 1e3 for kind, t, d in out["stamps"]
+               if kind == "search"]
+        log("durability", step="volatile", mode="fused",
+            seconds=DURABILITY_SECONDS, offered_qps=RUNTIME_QPS[0],
+            searches=len(lat), rejected_search=out["rejected"],
+            search_p50_ms=_p(lat, 50), search_p99_ms=_p(lat, 99),
+            compactions=out["stats"]["compactions"],
+            compact_s=round(sum(out["spent"]["compact"]) / 1e3, 3),
+            insert_ack_p99_ms=round(
+                out["stats"]["percentiles"]["insert"]["p99_ms"], 3),
+            launches=out["launches"])
+        t0 = time.perf_counter()
+        rt = ServingRuntime(index, rcfg)  # publishes the first snapshot
+        first_s = time.perf_counter() - t0
+        snap_bytes = _dir_bytes(Path(root) / SNAP_SUBDIR)
+        log("durability", step="first-snapshot", seconds=round(first_s, 3),
+            bytes=snap_bytes)
+        out = durability_traffic(rt, queries, mixes[0], "durability",
+                                 cut_at=DURABILITY_CUT_AT)
+        sent, stamps, spent = out["sent"], out["stamps"], out["spent"]
+        cut_lsn, t_cut0, t_cut1 = out["cut_lsn"], out["t_cut0"], out["t_cut1"]
+        t_end = time.perf_counter() + 300
+        while True:  # the cut's publish, or its failure
+            done = [e for e in rt.events()
+                    if e.name in (EV_SNAPSHOT_PUBLISH, EV_SNAPSHOT_FAILED)
+                    and e.fields["lsn"] == cut_lsn]
+            if done:
+                break
+            check(time.perf_counter() < t_end,
+                  "durability: the mid-traffic snapshot never finished")
+            time.sleep(0.05)
+        check(done[0].name == EV_SNAPSHOT_PUBLISH,
+              f"durability: the mid-traffic snapshot failed: {done[0]}")
+        t_pub = done[0].t
+        stats = rt.stats()
+        check(stats["applied_lsn"] == stats["wal_lsn"] >= stats["snapshot_lsn"]
+              == cut_lsn > 0,
+              f"durability: LSN contract before the crash: {stats}")
+        prom = rt.prometheus_text()
+        line = re.compile(r"^(# (HELP|TYPE) [a-zA-Z_:][a-zA-Z0-9_:]* .+|"
+                          r"[a-zA-Z_:][a-zA-Z0-9_:]* "
+                          r"(NaN|[+-]Inf|[-+0-9.e]+))$")
+        bad = [x for x in prom.strip().split("\n") if not line.match(x)]
+        check(not bad and "repro_wal_lsn" in prom,
+              f"durability: prometheus text does not parse: {bad[:3]}")
+        env = json.loads(json.dumps(rt.export_perfetto()))
+        n_spans = sum(1 for e in env["traceEvents"] if e["ph"] == "X")
+        check(n_spans > 0, "durability: the perfetto export holds no span")
+
+        # search latency inside the cut (writers held out), while the
+        # snapshot was being published (checksums, write), and outside
+        def window(a, b):
+            return [(d - t) * 1e3 for kind, t, d in stamps
+                    if kind == "search" and t < b and d > a]
+
+        in_cut = window(t_cut0, t_cut1)
+        in_pub = window(t_cut1, t_pub)
+        outside = [(d - t) * 1e3 for kind, t, d in stamps
+                   if kind == "search" and (d < t_cut0 or t > t_pub)]
+        rows = {k: sum(len(p[1] if k == "update" else p) for kk, p, _ in sent
+                       if kk == k) for k in ("insert", "delete", "update")}
+        log("durability", step="traffic", mode="fused",
+            seconds=DURABILITY_SECONDS, offered_qps=RUNTIME_QPS[0],
+            searches=sum(1 for k, *_ in sent if k == "search"),
+            rows_inserted=rows["insert"], rows_deleted=rows["delete"],
+            rows_updated=rows["update"], compactions=stats["compactions"],
+            wal_lsn=stats["wal_lsn"], snapshot_lsn=cut_lsn,
+            cut_s=round(t_cut1 - t_cut0, 4),
+            publish_s=round(t_pub - t_cut1, 3),
+            search_p50_ms_cut=_p(in_cut, 50), search_p99_ms_cut=_p(in_cut, 99),
+            n_cut=len(in_cut),
+            search_p50_ms_publish=_p(in_pub, 50),
+            search_p99_ms_publish=_p(in_pub, 99), n_publish=len(in_pub),
+            search_p50_ms_outside=_p(outside, 50),
+            search_p99_ms_outside=_p(outside, 99), n_outside=len(outside),
+            rejected_search=out["rejected"],
+            wal_append_ms_p50=_p(spent["append"], 50),
+            wal_append_ms_p99=_p(spent["append"], 99),
+            wal_append_s=round(sum(spent["append"]) / 1e3, 3),
+            compact_calls=len(spent["compact"]),
+            compact_s=round(sum(spent["compact"]) / 1e3, 3),
+            insert_ack_p99_ms=round(
+                stats["percentiles"]["insert"]["p99_ms"], 3),
+            prometheus_lines=len(prom.splitlines()), perfetto_spans=n_spans,
+            launches=out["launches"])
+
+        # the crash: the lanes stop where they are (no drain, no final
+        # fsync, no bundle); the crashed index stays for the comparison
+        rt._stop.set()
+        for t in rt._threads:
+            t.join(30)
+        torch.cuda.synchronize()
+        acked = {}
+        gone = []
+        for kind, payload, fut in sent:
+            if kind == "insert":
+                acked.update(zip(fut.result().tolist(), payload))
+            elif kind == "update":
+                acked.update(zip(payload[1].tolist(), payload[0]))
+            elif kind == "delete":
+                gone.extend(payload.tolist())
+        check(not set(gone) & set(acked),
+              "durability: a deleted id was also inserted or updated")
+        want = [index.search(queries[o : o + QUERY_BATCH])
+                for o in range(0, len(queries), QUERY_BATCH)]
+
+        # recovery, timed by phase: snapshot load + WAL read, replay,
+        # verification, then the post-recovery snapshot
+        marks = {}
+        real_read, real_verify = recovery.read_wal, recovery.verify_index
+
+        def timed_read(*a, **k):
+            out = real_read(*a, **k)
+            marks["read"] = time.perf_counter()
+            return out
+
+        def timed_verify(*a, **k):
+            torch.cuda.synchronize()
+            marks["replayed"] = time.perf_counter()
+            out = real_verify(*a, **k)
+            marks["verified"] = time.perf_counter()
+            return out
+
+        recovery.read_wal, recovery.verify_index = timed_read, timed_verify
+        try:
+            t0 = time.perf_counter()
+            rt2 = ServingRuntime.recover(index.cfg, root, cfg=rcfg,
+                                         device=index.device)
+            rto = time.perf_counter() - t0
+        finally:
+            recovery.read_wal, recovery.verify_index = real_read, real_verify
+        rep = rt2.recovery_report
+        replay_s = marks["replayed"] - marks["read"]
+        try:
+            log("durability", step="recover", rto_s=round(rto, 3),
+                load_s=round(marks["read"] - t0, 3),
+                replay_s=round(replay_s, 3),
+                verify_s=round(marks["verified"] - marks["replayed"], 3),
+                snapshot_s=round(t0 + rto - marks["verified"], 3),
+                snapshot_lsn=rep.snapshot_lsn,
+                records_replayed=rep.replayed_records,
+                rows_replayed=rep.replayed_rows,
+                rows_per_s=round(rep.replayed_rows / replay_s, 1),
+                records_per_s=round(rep.replayed_records / replay_s, 1),
+                torn_tail=rep.torn_tail, verified=rep.verified)
+            check(rep.verified and rep.last_lsn == stats["wal_lsn"],
+                  f"durability: recovery report {rep.as_dict()}")
+            # 0 acked rows lost: every acked insert and update resident
+            # through id_map with its vector bit-exact; no delete resident
+            s2, tm = rt2.index.state, rt2.index.pool_cfg.block_size
+            ids = torch.as_tensor(list(acked), device=s2.device).long()
+            vecs = torch.as_tensor(np.stack(list(acked.values())),
+                                   device=s2.device)
+            loc = s2.id_map[ids].long()
+            blk, off = loc // tm, loc % tm
+            found = (loc >= 0) & (s2.pool_live[blk, off] == 1) & \
+                (s2.pool_ids[blk, off].long() == ids)
+            exact = found & (s2.pool_payload[blk, off] == vecs).all(1)
+            lost = int((~exact).sum())
+            resident = int((s2.id_map[torch.as_tensor(
+                gone, device=s2.device).long()] >= 0).sum())
+            # the recovered runtime's top-10 against the crashed index's
+            got = [rt2.submit_search(queries[o : o + QUERY_BATCH])
+                   for o in range(0, len(queries), QUERY_BATCH)]
+            faults = []
+            for o, f, (dw, iw) in zip(range(0, len(queries), QUERY_BATCH),
+                                      got, want):
+                dg, ig = f.result(timeout=60)
+                q = torch.as_tensor(queries[o : o + QUERY_BATCH])
+                atol = 1e-6 * ((q * q).sum(1) + vmax)
+                faults += ref.topk_mismatches(
+                    torch.as_tensor(dg), torch.as_tensor(ig),
+                    torch.as_tensor(dw), torch.as_tensor(iw),
+                    rtol=1e-5, atol=atol)
+            log("durability", step="check", acked_rows=len(acked),
+                acked_rows_lost=lost, acked_deletes=len(gone),
+                deleted_resident=resident, queries=len(queries),
+                top10_mismatches=len(faults))
+            check(lost == 0, f"durability: {lost} acked rows lost")
+            check(resident == 0, f"durability: {resident} acked deletes "
+                  "resident after recovery")
+            check(not faults, f"durability: recovered vs crashed top-10: "
+                  f"{faults[:3]}")
+        finally:
+            rt2.stop()
+        bundles = list((Path(root) / "debug").glob("bundle-shutdown-*.json"))
+        check(len(bundles) == 1, f"durability: {len(bundles)} shutdown "
+              "bundles after the recovered runtime's stop()")
+        log("durability", step="done", bundles=len(bundles),
+            disk_bytes=_dir_bytes(root),
+            seconds=round(time.perf_counter() - t_phase, 1))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def dssm_rows(n: int, dim: int, seed: int, device, stream: int = 0):
     """[n, dim] float32 rows of ``dssm_like``'s distribution, drawn on
     ``device``: the 256 topics as ``dssm_like(seed=seed)`` draws them, then
@@ -2019,6 +2381,8 @@ def main() -> int:
         check(churn_counts[name] > 0, f"kernel {name} never launched on the churn path")
     # the serving runtime on the churned, compacted float32 and int8 indexes
     phase_runtime(indexes, queries, vmax, cfg.dim)
+    # durability on the float32 index: WAL, snapshots, crash, recovery
+    phase_durability(indexes["float32"], queries, vmax, cfg.dim)
     # the DSSM deployment, once the SIFT1M indexes are freed
     del indexes, index, indexed, data, corpus, online
     gc.collect()

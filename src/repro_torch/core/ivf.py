@@ -46,7 +46,8 @@ class StateChecksumError(RuntimeError):
 
 
 def _leaf_crc(arr: np.ndarray) -> int:
-    return zlib.crc32(np.ascontiguousarray(arr).tobytes())
+    # the CRC of the leaf's C-ordered bytes, read in place (no copy)
+    return zlib.crc32(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
 
 
 def state_to_host(state: IVFState) -> "tuple[dict[str, np.ndarray], dict]":
@@ -54,22 +55,52 @@ def state_to_host(state: IVFState) -> "tuple[dict[str, np.ndarray], dict]":
     per-leaf CRC32 meta dict (JSON-serializable) — the same layout as the
     reference's ``state_to_host``.  bfloat16 leaves are stored as their
     uint16 bit pattern; the logical dtype is recorded in the meta."""
-    fields = [f.name for f in dataclasses.fields(IVFState)]
+    return host_meta(*host_copy(state))
+
+
+def host_copy(state: IVFState) -> "tuple[dict[str, np.ndarray], dict]":
+    """Each leaf copied to the host on the current stream (the copies wait
+    for the stream's earlier work, and this call for the copies), plus
+    each leaf's logical dtype.  From the card the copies land in pinned
+    memory, several times faster than pageable (the caching host
+    allocator keeps the buffers for the next copy).  The arrays never
+    share memory with the live state, on a CPU index either, since the
+    steps write the state in place.  bfloat16 leaves come back as their
+    uint16 bit pattern."""
+    pin = state.device.type == "cuda"
     arrays: dict[str, np.ndarray] = {}
-    leaves: dict[str, dict] = {}
-    for name in fields:
-        t = getattr(state, name).detach().cpu()
+    dtypes: dict[str, str] = {}
+    for f in dataclasses.fields(IVFState):
+        src = getattr(state, f.name).detach()
+        t = torch.empty(src.shape, dtype=src.dtype, pin_memory=pin)
+        t.copy_(src, non_blocking=pin)
         if t.dtype == torch.bfloat16:
-            arr, logical = t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+            arr = t.view(torch.int16).numpy().view(np.uint16)
+            dtypes[f.name] = "bfloat16"
         else:
             arr = t.numpy()
-            logical = str(arr.dtype)
-        arrays[name] = arr
-        leaves[name] = {
-            "crc32": _leaf_crc(arr),
-            "dtype": logical,
-            "shape": list(arr.shape),
+            dtypes[f.name] = str(arr.dtype)
+        arrays[f.name] = arr
+    if pin:
+        torch.cuda.current_stream(state.device).synchronize()
+    return arrays, dtypes
+
+
+def host_meta(
+    arrays: "dict[str, np.ndarray]", dtypes: "dict[str, str]"
+) -> "tuple[dict[str, np.ndarray], dict]":
+    """``(arrays, meta)``: the schema and per-leaf CRC32 meta of
+    ``host_copy``'s arrays, apart from the copy so a caller can checksum
+    after releasing what it held for the copy."""
+    fields = [f.name for f in dataclasses.fields(IVFState)]
+    leaves = {
+        name: {
+            "crc32": _leaf_crc(arrays[name]),
+            "dtype": dtypes[name],
+            "shape": list(arrays[name].shape),
         }
+        for name in fields
+    }
     meta = {"schema": STATE_SCHEMA_VERSION, "fields": fields, "leaves": leaves}
     return arrays, meta
 
@@ -207,7 +238,7 @@ class IVFIndex:
     def _build_fns(self) -> None:
         """The mutation and maintenance steps for (``pool_cfg``, ``pq``);
         apart from ``train`` so that a restored state can be adopted
-        without k-means (the durability slice's ``install_state``)."""
+        without k-means (``install_state``)."""
         encode = pqmod.make_pq_encode_fn(self.pq) if self.pq else None
         self._insert_fn = make_insert_fn(self.pool_cfg, encode=encode)
         self._delete_fn = make_delete_fn(self.pool_cfg)
@@ -216,6 +247,35 @@ class IVFIndex:
             self.pool_cfg, self.cfg.rearrange_threshold,
             dead_frac=self.cfg.dead_frac_threshold,
         )
+
+    def install_state(self, state: IVFState, *, pq=None,
+                      next_id: int = 0) -> None:
+        """Adopt a restored ``IVFState`` (recovery entry point): the
+        centroids/codebooks travel inside the snapshot, so no training
+        data is needed — only the config must match the snapshot schema,
+        and the state must live on this index's device."""
+        expect = self.pool_cfg.payload_shape()
+        if tuple(state.pool_payload.shape) != expect:
+            raise StateSchemaError(
+                f"restored pool payload {tuple(state.pool_payload.shape)} "
+                f"!= {expect} from config — wrong IVFIndexConfig for this "
+                "snapshot"
+            )
+        if state.pool_payload.dtype != self.pool_cfg.payload_dtype():
+            raise StateSchemaError(
+                f"restored pool payload is {state.pool_payload.dtype}, the "
+                f"config's is {self.pool_cfg.payload_dtype()}"
+            )
+        if state.device.type != self.device.type:
+            raise ValueError(
+                f"restored state is on {state.device}, the index on "
+                f"{self.device}"
+            )
+        self.pq = pq
+        self.state = state
+        self._next_id = int(next_id)
+        self._search_fns = {}
+        self._build_fns()
 
     def add(self, x, ids=None) -> np.ndarray:
         """Insert a batch (offline load and online insertion share this).

@@ -45,7 +45,8 @@ all of a batch or none of it.
   (cluster assignment, the sort and ranks, PQ encoding or int8
   quantization, the allocation arithmetic) runs beside a search.
 * One writer at a time: every mutation step, front included, and every
-  compaction pass holds ``_write_lock`` (taken before ``_state_lock``).
+  compaction pass holds ``_write_lock`` (taken after ``_record_lock`` and
+  before ``_state_lock``).
   The front reads lengths and the free stack, so no other writer may
   land between it and the fence: in ``fused`` mode the search thread's
   standalone runs and the insert thread's lull compaction both write,
@@ -86,10 +87,32 @@ Fault-tolerance layer (docs/serving_ops.md), as the reference's:
 * **Deterministic fault injection** — every path above is exercised through
   ``repro_torch.core.faults.FaultPlan`` hooks (no-op by default).
 
-Durability (``persist_dir``, ``snapshot``, ``recover``) is ROADMAP queue 1
-item 7, and the exporters and debug bundles (``metrics``,
-``prometheus_text``, ``export_perfetto``, ``dump_debug_bundle``) are item
-8; until those slices they raise ``NotImplementedError``.
+Durability (``persist_dir``; ``repro_torch.persist``), as the reference's:
+
+* **WAL before apply** — each mutation run is appended to the mutation
+  WAL (fsynced every ``wal_sync_interval`` appends; 1 by default: RPO = 0
+  acked rows) as the first thing its step does under ``_write_lock``,
+  before its read-only front, so LSN order is the order the mutation
+  stream applies them in.  ``_applied_lsn`` moves only once the step's
+  event has completed, and a future resolves only after that.  A run
+  retried after its record was logged (isolation retries, the fallback of
+  a failed fused dispatch) carries its LSN and is never appended twice.
+* **The snapshot cut** holds ``_record_lock`` (no record between its
+  append and its fence advance) and ``_write_lock`` (no step and no
+  compaction pass), and copies the state on the mutation lane's stream,
+  where every write to the state is issued, so the copy is ordered after
+  all of them.  Searches never write, so they go on during the copy.  The
+  checksums, the publish and the WAL prune run on a background thread.
+* **Recovery** (``ServingRuntime.recover``) loads the newest snapshot,
+  replays the WAL tail through the same steps, verifies, and opens a
+  runtime over the directory.
+
+Lock order: ``_record_lock`` -> ``_write_lock`` -> ``_state_lock``, never
+the other way.
+
+The exporters (``metrics``, ``prometheus_text``, ``export_perfetto``) and
+the debug bundle (written on ``stop()``, on lane death and on a
+``RecoveryError``) are the reference's (``repro_torch.obs``).
 """
 
 from __future__ import annotations
@@ -98,6 +121,7 @@ import collections
 import contextlib
 import dataclasses
 import logging
+import os
 import queue
 import threading
 import time
@@ -107,6 +131,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import pq as pqmod
 from repro_torch.core.admission import (
     AdmissionGate,
@@ -122,7 +147,12 @@ from repro_torch.core.admission import (
 from repro_torch.core.block_pool import dead_fraction, pool_stats
 from repro_torch.core.faults import NO_FAULTS, FaultPlan
 from repro_torch.core.insert import assign_clusters, insert_payload
-from repro_torch.core.ivf import IVFIndex
+from repro_torch.core.ivf import (
+    IVFIndex,
+    IVFIndexConfig,
+    host_copy,
+    host_meta,
+)
 from repro_torch.core.metrics import (
     ArrivalEstimator,
     CounterSet,
@@ -131,6 +161,8 @@ from repro_torch.core.metrics import (
 )
 from repro_torch.core.mutate import apply_delete, last_occurrence_mask
 from repro_torch.core.search import resolve_search_impl
+from repro_torch.obs import bundle as obs_bundle
+from repro_torch.obs import export as obs_export
 from repro_torch.obs.events import (
     EV_COMPACTION,
     EV_COMPACTION_DEFERRED,
@@ -139,6 +171,9 @@ from repro_torch.obs.events import (
     EV_LADDER_STEP,
     EV_LANE_DEAD,
     EV_POOL_REBALANCE,
+    EV_SNAPSHOT_CUT,
+    EV_SNAPSHOT_FAILED,
+    EV_SNAPSHOT_PUBLISH,
     EV_WINDOW_RUNG,
     EV_WORKER_RESTART,
     FlightRecorder,
@@ -157,17 +192,16 @@ from repro_torch.obs.trace import (
     STAGE_QUEUE,
     RequestTracer,
 )
+from repro_torch.persist import snapshot as snapmod
+from repro_torch.persist.snapshot import (
+    SNAP_SUBDIR,
+    WAL_SUBDIR,
+    PersistDirConflict,
+    persist_dir_in_use,
+)
+from repro_torch.persist.wal import MutationWAL
 
 log = logging.getLogger(__name__)
-
-_DURABILITY_LATER = (
-    "durability (WAL, snapshots, recovery) is ROADMAP queue 1 item 7, not "
-    "ported yet"
-)
-_EXPORTERS_LATER = (
-    "the exporters and debug bundles are ROADMAP queue 1 item 8, not "
-    "ported yet"
-)
 
 
 class _Lane:
@@ -281,6 +315,28 @@ class _Fence:
             self.rt._state_lock.release()
 
 
+class _Record:
+    """One mutation run's WAL record.  The run's step calls it first under
+    ``_write_lock``, before its read-only front, so LSN order is the order
+    the mutation stream applies runs in.  It appends once: a retry of a
+    run already logged is built with that ``lsn`` and appends nothing (the
+    rows would replay twice)."""
+
+    __slots__ = ("rt", "kind", "ids", "raw", "lsn")
+
+    def __init__(self, rt: "ServingRuntime", kind: str, ids: np.ndarray,
+                 raw: Optional[np.ndarray], lsn: Optional[int] = None):
+        self.rt = rt
+        self.kind = kind
+        self.ids = ids
+        self.raw = raw
+        self.lsn = lsn
+
+    def __call__(self) -> None:  # holds: _write_lock
+        if self.lsn is None:
+            self.lsn = self.rt._wal_append(self.kind, self.ids, self.raw)
+
+
 @dataclasses.dataclass
 class _Timed:
     future: Future
@@ -352,10 +408,16 @@ class RuntimeConfig:
     # stop() default: flush queued mutations (True) or fail everything
     # undispatched with RuntimeShutdown (False)
     drain_on_stop: bool = True
-    # ---- durability (ROADMAP queue 1 item 7, not ported yet) -----------
-    # the reference's mutation WAL + snapshots; setting persist_dir raises
-    # NotImplementedError at construction until the durability slice
+    # ---- durability (repro_torch.persist; docs/serving_ops.md) ---------
+    # root directory for the mutation WAL + snapshots; None keeps the index
+    # volatile.  Reopening a directory that already holds data must go
+    # through ``ServingRuntime.recover`` — enforced: the plain constructor
+    # raises PersistDirConflict over a used directory, because a fresh
+    # runtime over it would fork the log from the state.
     persist_dir: Optional[str] = None
+    # mutation batches between WAL fsyncs.  1 (default) = fsync before
+    # every ack: RPO = 0 acked rows.  N > 1 batches the fsync: up to N-1
+    # most-recent acked batches ride in the page cache across a crash.
     wal_sync_interval: int = 1
     # ---- adaptive control (docs/serving_ops.md "Adaptive control") ------
     # master switch for the arrival-rate-driven control loop: batch window
@@ -398,8 +460,8 @@ class RuntimeConfig:
     trace_sample_rate: float = 0.01
     trace_buffer: int = 2048  # finished traces kept (ring, oldest evicted)
     event_buffer: int = 2048  # flight-recorder events kept (ring)
-    # debug bundles are ROADMAP queue 1 item 8 (not ported yet): setting a
-    # directory raises NotImplementedError at construction
+    # where debug bundles land on lane death / shutdown / RecoveryError;
+    # None falls back to persist_dir; both None = no bundles written
     debug_bundle_dir: Optional[str] = None
 
 
@@ -750,18 +812,19 @@ class ServingRuntime:
     CUDA streams of the index's device."""
 
     def __init__(self, index: IVFIndex, cfg: RuntimeConfig = RuntimeConfig(),
-                 faults: Optional[FaultPlan] = None):
-        if cfg.persist_dir is not None:
-            raise NotImplementedError(f"persist_dir: {_DURABILITY_LATER}")
-        if cfg.debug_bundle_dir is not None:
-            raise NotImplementedError(f"debug_bundle_dir: {_EXPORTERS_LATER}")
+                 faults: Optional[FaultPlan] = None, *,
+                 _recovered: bool = False):
+        """``_recovered`` is internal: only the ``recover`` classmethod may
+        set it, after replaying the directory's history into ``index`` —
+        it is what licenses opening a persist_dir that already holds data."""
         self.index = index  # guarded-by: _state_lock [state, _next_id]
         self.cfg = cfg
         self.pool_cfg = index.pool_cfg
         self._faults = faults if faults is not None else NO_FAULTS
         self._state_lock = _FifoLock()
         # one writer of the state at a time, a step's read-only front
-        # included; taken before _state_lock, never after it
+        # included.  Lock order: _record_lock -> _write_lock ->
+        # _state_lock, never the other way
         self._write_lock = threading.Lock()
         # the lanes' streams on the index's device: serial mode issues
         # everything on one, parallel and fused on one each
@@ -769,6 +832,14 @@ class ServingRuntime:
         self._m_lane = (
             self._s_lane if cfg.mode == "serial" else _Lane(index.device)
         )
+        if index.device.type == "cuda":
+            # the lanes' streams do not wait on the caller's stream by
+            # themselves: order their work after what the caller queued
+            # before handing the index over (its build, a restore)
+            handed = torch.cuda.Event()
+            handed.record(torch.cuda.current_stream(index.device))
+            self._s_lane.wait(handed)
+            self._m_lane.wait(handed)
         # events of the last search and of the last mutation dispatched:
         # each lane's stream waits on the other's before touching the state
         self._search_event = None  # guarded-by: _state_lock
@@ -865,6 +936,64 @@ class ServingRuntime:
         # of the live chain depth) — invalidated only by the mutation
         # paths, so pure-search traffic never pays the device sync
         self._budget: Optional[int] = None  # guarded-by: _state_lock
+        # ---- durability (repro_torch.persist) ---------------------------
+        # report attached by the `recover` classmethod; None on a cold start
+        self.recovery_report = None
+        self._wal: Optional[MutationWAL] = None
+        self._snap_mgr: Optional[CheckpointManager] = None
+        # LSN of the last mutation applied to device state.  Written under
+        # _state_lock, and only after the step's event has completed — the
+        # fence never covers effects the device has not finished.  The
+        # snapshot cut reads it with the state under _record_lock.
+        self._applied_lsn = 0  # guarded-by: _state_lock
+        # Serializes one WAL record's whole durable apply — append ->
+        # device apply -> event complete -> fence advance, *including* the
+        # per-item isolation retries of an already-logged run — against
+        # the snapshot cut.  Without it a cut could land between a retried
+        # record's items (fence at L with only part of L applied: rows
+        # acked after the cut are lost on replay) or between an apply and
+        # its fence advance (replay would double-apply the record).
+        # Taken before _write_lock and _state_lock.
+        self._record_lock = threading.Lock()
+        # one snapshot publisher at a time; the thread handle + last
+        # published LSN move under this lock (never held across publish IO)
+        self._snap_lock = threading.Lock()
+        self._snap_thread: Optional[threading.Thread] = None  # guarded-by: _snap_lock
+        self._snapshot_lsn = 0  # guarded-by: _snap_lock
+        if cfg.persist_dir is not None:
+            if not _recovered and persist_dir_in_use(cfg.persist_dir):
+                raise PersistDirConflict(
+                    f"{cfg.persist_dir} already holds snapshots/WAL from a "
+                    "previous run; a fresh runtime over it would fork the "
+                    "log from the in-memory index.  Reopen it through "
+                    "ServingRuntime.recover(), or point persist_dir at an "
+                    "empty directory."
+                )
+            self._snap_mgr = CheckpointManager(
+                os.path.join(cfg.persist_dir, SNAP_SUBDIR)
+            )
+            # publishes never overlap: held for the whole checkpoint write
+            self._publish_serial = threading.Lock()
+            latest = self._snap_mgr.latest_step()
+            self._wal = MutationWAL(
+                os.path.join(cfg.persist_dir, WAL_SUBDIR),
+                sync_interval=cfg.wal_sync_interval,
+                faults=self._faults,
+                # LSN floor = the snapshot fence: a log whose segments were
+                # all pruned must not restart numbering under the fence
+                start_lsn=latest or 0,
+                recorder=self._events,
+            )
+            # cold start: 0.  After `recover`: the adopted log's last LSN —
+            # the installed state already includes every replayed record.
+            self._applied_lsn = self._wal.last_lsn
+            if latest is None:
+                # recovery requires a snapshot to anchor the LSN fence, so
+                # publish the pre-traffic state now, synchronously — a crash
+                # one batch in must already be recoverable
+                self.snapshot(wait=True)
+            else:
+                self._snapshot_lsn = latest
         self._build_steps()
         self._threads = [
             threading.Thread(
@@ -930,9 +1059,12 @@ class ServingRuntime:
         self._mutation_fns = {
             "insert": _insert, "delete": _delete, "update": _update,
         }
-        self._insert_step = _Step(lambda args: self._mutate("insert", args))
-        self._delete_step = _Step(lambda args: self._mutate("delete", args))
-        self._update_step = _Step(lambda args: self._mutate("update", args))
+        self._insert_step = _Step(
+            lambda args, record: self._mutate("insert", args, record=record))
+        self._delete_step = _Step(
+            lambda args, record: self._mutate("delete", args, record=record))
+        self._update_step = _Step(
+            lambda args, record: self._mutate("update", args, record=record))
 
     def lane_streams(self) -> dict:
         """The CUDA stream each lane issues on (``None`` on the CPU):
@@ -964,12 +1096,15 @@ class ServingRuntime:
             return self._current_budget()
 
     def _mutate(self, kind: str, args: tuple, *, locked: bool = False,
-                before=None):
+                before=None, record: Optional[_Record] = None):
         """Run one mutation step on the mutation stream and record its
         event; returns the event (``None`` on the CPU).  The step holds
         ``_write_lock`` throughout and takes ``_state_lock`` at its fence
-        (``locked``: the caller holds both)."""
+        (``locked``: the caller holds both).  ``record``, the run's WAL
+        record, is appended first, before the step's read-only front."""
         with contextlib.nullcontext() if locked else self._write_lock:
+            if record is not None:
+                record()
             fence = _Fence(self, take_lock=not locked, before=before)
             try:
                 with self._m_lane.scope():
@@ -1201,11 +1336,144 @@ class ServingRuntime:
 
     # --------------------------------------------------------- durability --
     def snapshot(self, wait: bool = True) -> int:
-        raise NotImplementedError(f"snapshot(): {_DURABILITY_LATER}")
+        """Crash-consistent online snapshot (the durability barrier).
+
+        The cut holds ``_record_lock`` — waiting out any in-flight WAL
+        record, append to fence advance — and ``_write_lock``, so no
+        mutation step or compaction pass runs, and copies ``(state,
+        applied LSN, id cursor)`` as one cut.  The copy is issued on the
+        mutation lane's stream, where every write to the state is issued,
+        so it is ordered after all of them; searches only read the state
+        and go on during the copy.  Then the active WAL segment is sealed.
+        The checksums, the checkpoint write and the WAL prune run on a
+        background thread while serving continues; the WAL is pruned only
+        *after* the publish succeeded, so a crash at any instant leaves
+        snapshot + WAL sufficient to rebuild the cut.  A publish failure
+        (injectable at the ``snapshot_publish`` site) is counted, logged,
+        and leaves the previous snapshot and the whole WAL intact — and is
+        re-raised here when ``wait=True``.  Returns the cut's LSN fence.
+        """
+        if self._wal is None or self._snap_mgr is None:
+            raise RuntimeError(
+                "snapshot() needs cfg.persist_dir (durability is off)"
+            )
+        with self._snap_lock:
+            prev = self._snap_thread
+        if prev is not None and prev.is_alive():
+            prev.join()  # barrier semantics: the previous cut lands first
+        with self._record_lock:
+            with self._write_lock:
+                with self._state_lock:
+                    lsn = self._applied_lsn
+                    next_id = self.index._next_id
+                with self._m_lane.scope():
+                    arrays, dtypes = host_copy(self.index.state)
+            # seal the segment: records after the cut land in a fresh
+            # file, so prune can drop covered history at whole-segment
+            # granularity (a post-cut record in the sealed segment just
+            # keeps it alive)
+            self._wal.rotate()
+        self._events.record_event(EV_SNAPSHOT_CUT, lsn=lsn, next_id=next_id)
+        books = (
+            None if self.index.pq is None
+            else self.index.pq.codebooks.cpu().numpy()
+        )
+        box: dict = {}
+
+        def _publish():
+            try:
+                _, meta = host_meta(arrays, dtypes)
+                with self._publish_serial:
+                    snapmod.publish(
+                        self._snap_mgr, arrays, meta, lsn=lsn,
+                        next_id=next_id, pq_books=books, faults=self._faults,
+                    )
+                    with self._snap_lock:
+                        self._snapshot_lsn = max(self._snapshot_lsn, lsn)
+                    self._wal.prune(lsn)
+                self._counters.inc("snapshots")
+                self._events.record_event(EV_SNAPSHOT_PUBLISH, lsn=lsn)
+            except Exception as e:
+                log.exception(
+                    "snapshot publish @ lsn %d failed; WAL retained", lsn
+                )
+                self._counters.inc("snapshot_failures")
+                self._events.record_event(
+                    EV_SNAPSHOT_FAILED, lsn=lsn, error=repr(e)
+                )
+                box["exc"] = e
+
+        t = threading.Thread(
+            target=_publish, daemon=True, name="snapshot-publish"
+        )
+        with self._snap_lock:
+            self._snap_thread = t
+        t.start()
+        if wait:
+            t.join()
+            if "exc" in box:
+                raise box["exc"]
+        return lsn
 
     @classmethod
-    def recover(cls, *args, **kwargs) -> "ServingRuntime":
-        raise NotImplementedError(f"recover(): {_DURABILITY_LATER}")
+    def recover(cls, index_cfg: IVFIndexConfig, persist_dir: str,
+                cfg: Optional[RuntimeConfig] = None,
+                faults: Optional[FaultPlan] = None,
+                sample: int = 256, device=None) -> "ServingRuntime":
+        """Verified crash recovery -> a serving runtime on ``device`` (the
+        card unless the caller names one); the only way to reopen a
+        persist directory that already holds data (the plain constructor
+        refuses one with ``PersistDirConflict``, because a fresh index
+        over an old log forks the log from the state).
+
+        Loads the newest snapshot, replays the WAL tail through the same
+        batch steps serving uses, verifies (``check_invariants`` + sampled
+        id_map/pool_live cross-check), then opens for traffic with the log
+        adopted at its last LSN.  Raises
+        ``repro_torch.persist.RecoveryError`` instead of serving anything
+        it cannot prove.  The recovery report is attached as
+        ``runtime.recovery_report``."""
+        # runtime<->recovery would be a module-level import cycle
+        from repro_torch.persist.recovery import RecoveryError, recover_index
+        try:
+            index, report = recover_index(
+                index_cfg, persist_dir, faults=faults, sample=sample,
+                device=device,
+            )
+        except RecoveryError as e:
+            # first responder's crash dump: what recovery had established
+            # before it refused to serve (docs/observability.md)
+            try:
+                bundle_dir = (
+                    cfg.debug_bundle_dir if cfg is not None else None
+                ) or persist_dir
+                partial = getattr(e, "report", None)
+                obs_bundle.write_debug_bundle(
+                    bundle_dir, reason="recovery-error",
+                    extra={
+                        "error": str(e),
+                        "report": (
+                            partial.as_dict() if partial is not None else None
+                        ),
+                        "persist_dir": persist_dir,
+                    },
+                )
+            except Exception:
+                log.exception("debug bundle for recovery failure not written")
+            raise
+        run_cfg = dataclasses.replace(
+            cfg if cfg is not None else RuntimeConfig(),
+            persist_dir=persist_dir,
+        )
+        rt = cls(index, run_cfg, faults=faults, _recovered=True)
+        rt.recovery_report = report
+        try:
+            # collapse the replayed tail: the *next* crash replays only
+            # what arrives after this point (RTO), and the WAL can prune
+            rt.snapshot(wait=True)
+        except Exception:
+            log.exception("post-recovery snapshot failed; serving anyway")
+        return rt
 
     def stop(self, drain: Optional[bool] = None, timeout: float = 10.0):
         """Graceful shutdown.  Stops admission (later ``submit_*`` raise
@@ -1226,6 +1494,23 @@ class ServingRuntime:
                 return
             self._drained = True
         self._drain_on_stop(drain)
+        self._finish_persist(timeout)
+        # final-state capture for post-mortems; a bundle failure must not
+        # mask a clean shutdown (dump_debug_bundle swallows + logs)
+        self.dump_debug_bundle("shutdown")
+
+    def _finish_persist(self, timeout: float):
+        """Shutdown tail of the durability layer: let an in-flight
+        snapshot publish land, then close the WAL (final fsync) — the
+        drain above already logged everything it flushed."""
+        with self._snap_lock:
+            t = self._snap_thread
+        if t is not None and t.is_alive():
+            t.join(timeout)
+        if self._snap_mgr is not None:
+            self._snap_mgr.wait()
+        if self._wal is not None:
+            self._wal.close()
 
     def _drain_on_stop(self, drain: bool):
         # mutation lane: everything not yet dispatched, in arrival order —
@@ -1344,9 +1629,23 @@ class ServingRuntime:
             out["compactions_deferred"] = c.get("compactions_deferred", 0)
             if self._pool is not None:
                 out["pool"] = self._pool.snapshot()
+        # durability gauges: the LSN contract (docs/serving_ops.md) is
+        # snapshot_lsn <= applied_lsn <= wal_lsn, durable_lsn <= wal_lsn
+        if self._wal is not None:
+            # lsns() is one locked read; two property reads can interleave
+            # with an append+fsync and report durable_lsn > wal_lsn
+            last, durable = self._wal.lsns()
+            out["wal_lsn"] = last
+            out["wal_durable_lsn"] = durable
+            with self._snap_lock:
+                out["snapshot_lsn"] = self._snapshot_lsn
+            out["snapshots"] = c.get("snapshots", 0)
+            out["snapshot_failures"] = c.get("snapshot_failures", 0)
         # live-occupancy gauges: allocated != occupied once tombstones
         # exist; read once the last mutation dispatched has run
         with self._state_lock:
+            if self._wal is not None:
+                out["applied_lsn"] = self._applied_lsn
             _synchronize(self._mutation_event)
             out.update(pool_stats(self.index.state, self.pool_cfg))
         return out
@@ -1361,17 +1660,46 @@ class ServingRuntime:
         return self._events.snapshot()
 
     def metrics(self) -> dict:
-        raise NotImplementedError(f"metrics(): {_EXPORTERS_LATER}")
+        """``stats()`` flattened to ``{dotted_name: float}`` — the unified
+        registry behind both exporters."""
+        return obs_export.flatten_metrics(self.stats())
 
     def prometheus_text(self) -> str:
-        raise NotImplementedError(f"prometheus_text(): {_EXPORTERS_LATER}")
+        """Prometheus text exposition of :meth:`metrics`."""
+        return obs_export.prometheus_text(self.metrics())
 
     def export_perfetto(self) -> dict:
-        raise NotImplementedError(f"export_perfetto(): {_EXPORTERS_LATER}")
+        """Chrome/Perfetto ``trace_event`` envelope over the sampled
+        traces plus flight-recorder instants (load into ui.perfetto.dev)."""
+        return obs_export.perfetto_trace(self.traces(), self.events())
 
     def dump_debug_bundle(self, reason: str,
                           directory: Optional[str] = None) -> Optional[str]:
-        raise NotImplementedError(f"dump_debug_bundle(): {_EXPORTERS_LATER}")
+        """Write a post-mortem bundle (flight recorder + stats + config)
+        to ``directory`` or ``cfg.debug_bundle_dir`` or
+        ``cfg.persist_dir``; returns the path, or ``None`` when no
+        destination is configured.  Never raises: called from shutdown and
+        failure paths, where a bundle error must not mask the real one."""
+        target = directory or self.cfg.debug_bundle_dir or \
+            self.cfg.persist_dir
+        if target is None:
+            return None
+        try:
+            stats = {
+                k: v.as_dict() if hasattr(v, "as_dict") else v
+                for k, v in self.stats().items()
+            }
+        except Exception:  # a wedged runtime still deserves its bundle
+            log.exception("stats() failed during debug bundle; omitting")
+            stats = None
+        try:
+            return obs_bundle.write_debug_bundle(
+                target, reason=reason, config=dataclasses.asdict(self.cfg),
+                stats=stats, events=self.events(), traces=self.traces(),
+            )
+        except Exception:
+            log.exception("debug bundle %r not written", reason)
+            return None
 
     # --------------------------------------------------------- workers ---
     def _supervised(self, body, name: str):
@@ -1406,6 +1734,7 @@ class ServingRuntime:
                         EV_LANE_DEAD, lane=name, restarts=restarts - 1
                     )
                     self._fail_lane_queue(name)
+                    self.dump_debug_bundle(f"lane-death-{name}")
                     return
                 self._events.record_event(
                     EV_WORKER_RESTART, lane=name, restarts=restarts
@@ -1684,13 +2013,38 @@ class ServingRuntime:
             self._events.record_event(EV_COMPACTION, passes=passes)
         self._controller.compacted()
 
+    def _wal_append(self, kind: str, ids: np.ndarray,
+                    vectors: Optional[np.ndarray]) -> Optional[int]:
+        """Log one run before its device apply (no-op without a WAL).
+        Called by the run's step under ``_write_lock`` (``_Record``) —
+        append order *is* apply order, so the LSN sequence replays in
+        exactly the order the mutation stream applied the runs."""
+        if self._wal is None:
+            return None
+        return self._wal.append(kind, ids, vectors)
+
     def _apply_run(self, items: list[_Timed], *, _isolate: bool = True,
-                   _ids: Optional[np.ndarray] = None):
+                   _ids: Optional[np.ndarray] = None,
+                   _logged_lsn: Optional[int] = None):
         """Dispatch one same-kind run as one step; same failure discipline
         as the search path (no future may hang).  A failed multi-item run
         retries once per item so one poisoned payload fails only its own
-        future.  Retries after a partial failure carry the original ids
-        (``_ids``)."""
+        future.
+
+        Durability ordering per run: WAL append (fsync per
+        ``wal_sync_interval``) -> device apply -> event complete -> fence
+        advance -> ack, the whole sequence under ``_record_lock`` so the
+        snapshot cut can never land inside it, and the fence
+        (``_applied_lsn``) moving only after the step's event completed.
+        Retries after a partial failure carry the original ids (``_ids``)
+        and, when the run's record already hit the log, its LSN
+        (``_logged_lsn``) — appending again would replay the rows twice.
+        The record lock spans the *entire* per-item retry loop of a logged
+        run: each surviving item re-advances the fence to the record's
+        LSN, and a cut between items would otherwise fence a half-applied
+        record.  An item that fails inside the loop is nacked, so a fence
+        that ends at the record's LSN with those rows absent still honours
+        RPO = 0 *acked* rows."""
         kind = items[0].kind
         step = {
             "insert": self._insert_step,
@@ -1698,48 +2052,64 @@ class ServingRuntime:
             "update": self._update_step,
         }[kind]
         ids = _ids
+        lsn = _logged_lsn
+        rec: Optional[_Record] = None
+        if _isolate:  # retries run under the outer call's hold
+            self._record_lock.acquire()
         try:
-            # service is the WHOLE dispatch turnaround — fault site
-            # (where benchmarks pin per-dispatch cost), marshalling,
-            # device apply — not just the step call: the controller's
-            # capacity model (rho, stability floor) is only honest if
-            # the measured seconds cover everything a dispatch costs
-            n_traced = self._traced(step)
-            t_svc = time.perf_counter()
-            # batch_form span ends here, BEFORE the fault site: an
-            # injected dispatch delay belongs to the dispatch stages
-            self._stamp(items, STAGE_BATCH, t_svc)
-            self._faults.check("mutation_step")
-            if _isolate:  # top-level dispatch: feed the controller
-                self._controller.mutation.observe_queue_age(
-                    time.perf_counter()
-                    - min(it.t_arrival for it in items)
+            try:
+                # service is the WHOLE dispatch turnaround — fault site
+                # (where benchmarks pin per-dispatch cost), marshalling,
+                # device apply — not just the step call: the controller's
+                # capacity model (rho, stability floor) is only honest if
+                # the measured seconds cover everything a dispatch costs
+                n_traced = self._traced(step)
+                t_svc = time.perf_counter()
+                # batch_form span ends here, BEFORE the fault site: an
+                # injected dispatch delay belongs to the dispatch stages
+                self._stamp(items, STAGE_BATCH, t_svc)
+                self._faults.check("mutation_step")
+                if _isolate:  # top-level dispatch: feed the controller
+                    self._controller.mutation.observe_queue_age(
+                        time.perf_counter()
+                        - min(it.t_arrival for it in items)
+                    )
+                args, ids, raw = self._mutation_args(kind, items, ids=ids)
+                rec = _Record(self, kind, ids, raw, lsn=lsn)
+                ev = step(args, rec)
+                # the key's first dispatch loaded the kernels: a compile
+                compiled = n_traced == 0
+                self._stamp(
+                    items, STAGE_COMPILE if compiled else STAGE_EXECUTE
                 )
-            args, ids, _ = self._mutation_args(kind, items, ids=ids)
-            ev = step(args)
-            # the key's first dispatch loaded the kernels: a compile
-            compiled = n_traced == 0
-            self._stamp(
-                items, STAGE_COMPILE if compiled else STAGE_EXECUTE
-            )
-            _synchronize(ev)
-            t_dev = time.perf_counter()
-            self._stamp(items, STAGE_DEVICE, t_dev)
-            if not compiled:  # compile != service
-                self._controller.mutation.observe_service(t_dev - t_svc)
-        except Exception as e:
-            if _isolate and len(items) > 1:
-                self._counters.inc("isolations")
-                off = 0
-                for it in items:
-                    n = self._n_rows(it)
-                    sl = None if ids is None else ids[off : off + n]
-                    self._apply_run([it], _isolate=False, _ids=sl)
-                    off += n
+                _synchronize(ev)
+                t_dev = time.perf_counter()
+                self._stamp(items, STAGE_DEVICE, t_dev)
+                if not compiled:  # compile != service
+                    self._controller.mutation.observe_service(t_dev - t_svc)
+                if rec.lsn is not None:
+                    with self._state_lock:
+                        self._applied_lsn = rec.lsn
+            except Exception as e:
+                if rec is not None:  # the step may have logged the run
+                    lsn = rec.lsn
+                if _isolate and len(items) > 1:
+                    self._counters.inc("isolations")
+                    off = 0
+                    for it in items:
+                        n = self._n_rows(it)
+                        sl = None if ids is None else ids[off : off + n]
+                        self._apply_run(
+                            [it], _isolate=False, _ids=sl, _logged_lsn=lsn
+                        )
+                        off += n
+                    return
+                self._counters.inc("poisoned", len(items))
+                self._fail_futures(items, e)
                 return
-            self._counters.inc("poisoned", len(items))
-            self._fail_futures(items, e)
-            return
+        finally:
+            if _isolate:
+                self._record_lock.release()
         self._counters.inc(
             {"insert": "inserts", "delete": "deletes",
              "update": "updates"}[kind],
@@ -2042,6 +2412,7 @@ class ServingRuntime:
         i_run, rest = self._split_flush(i_items)
         kind = i_run[0].kind
         ids = None
+        rec: Optional[_Record] = None
         try:
             try:
                 # full dispatch turnaround (see _apply_run)
@@ -2053,54 +2424,71 @@ class ServingRuntime:
                 qs = [np.atleast_2d(x.payload) for x in s_items]
                 counts = [len(q) for q in qs]
                 qbatch = np.concatenate(qs, 0)
-                m_args, ids, _ = self._mutation_args(kind, i_run)
+                m_args, ids, raw = self._mutation_args(kind, i_run)
+                rec = _Record(self, kind, ids, raw)
                 pq_, qvalid = self._padded(qbatch, self._bucket(len(qbatch)))
                 with self._s_lane.scope():
                     q_dev = self._to_device(pq_)
                     v_dev = self._to_device(qvalid)
-                with self._write_lock, self._state_lock:
-                    base = self._order_after_mutations()
-                    now = time.perf_counter()
-                    age = now - min(x.t_arrival for x in s_items)
-                    m_age = now - min(x.t_arrival for x in i_run)
-                    self._controller.search.observe_queue_age(age)
-                    self._controller.mutation.observe_queue_age(m_age)
-                    # controller effort first, ladder protection on top
-                    # (same composition as _run_search)
-                    c_nprobe, c_rerank, c_budget = \
-                        self._controller.search_effort(
-                            self.cfg.nprobe, self.cfg.rerank, base
-                        )
-                    nprobe, rerank, eff = self._ladder.apply(
-                        c_nprobe, c_rerank, c_budget,
-                        self._ladder.observe(age),
-                    )
-                    fused_step = self._fused_step_for(
-                        base, kind, eff, nprobe, rerank
-                    )
-                    n_traced = self._traced(fused_step)
-                    d, i, ev = fused_step(q_dev, v_dev, m_args)
-                compiled = n_traced == 0  # the key's first dispatch
-                stage = STAGE_COMPILE if compiled else STAGE_EXECUTE
-                self._stamp(s_items, stage)
-                self._stamp(i_run, stage)
-                with self._s_lane.scope():
-                    d, i = d.cpu().numpy(), i.cpu().numpy()
-                _synchronize(ev)
-                t_dev = time.perf_counter()
-                self._stamp(s_items, STAGE_DEVICE, t_dev)
-                self._stamp(i_run, STAGE_DEVICE, t_dev)
-                if not compiled:
-                    svc = t_dev - t_svc
-                    self._controller.search.observe_service(svc)
-                    self._controller.mutation.observe_service(svc)
+                # same per-record discipline as _apply_run: the snapshot
+                # cut is held off from the append to the fence advance,
+                # and the fence moves only once the run's event completed
+                with self._record_lock:
+                    with self._write_lock:
+                        rec()  # before the run's front (see _Record)
+                        with self._state_lock:
+                            base = self._order_after_mutations()
+                            now = time.perf_counter()
+                            age = now - min(x.t_arrival for x in s_items)
+                            m_age = now - min(x.t_arrival for x in i_run)
+                            self._controller.search.observe_queue_age(age)
+                            self._controller.mutation.observe_queue_age(
+                                m_age
+                            )
+                            # controller effort first, ladder protection
+                            # on top (same composition as _run_search)
+                            c_nprobe, c_rerank, c_budget = \
+                                self._controller.search_effort(
+                                    self.cfg.nprobe, self.cfg.rerank, base
+                                )
+                            nprobe, rerank, eff = self._ladder.apply(
+                                c_nprobe, c_rerank, c_budget,
+                                self._ladder.observe(age),
+                            )
+                            fused_step = self._fused_step_for(
+                                base, kind, eff, nprobe, rerank
+                            )
+                            n_traced = self._traced(fused_step)
+                            d, i, ev = fused_step(q_dev, v_dev, m_args)
+                    compiled = n_traced == 0  # the key's first dispatch
+                    stage = STAGE_COMPILE if compiled else STAGE_EXECUTE
+                    self._stamp(s_items, stage)
+                    self._stamp(i_run, stage)
+                    with self._s_lane.scope():
+                        d, i = d.cpu().numpy(), i.cpu().numpy()
+                    _synchronize(ev)
+                    t_dev = time.perf_counter()
+                    self._stamp(s_items, STAGE_DEVICE, t_dev)
+                    self._stamp(i_run, STAGE_DEVICE, t_dev)
+                    if not compiled:
+                        svc = t_dev - t_svc
+                        self._controller.search.observe_service(svc)
+                        self._controller.mutation.observe_service(svc)
+                    if rec.lsn is not None:
+                        with self._state_lock:
+                            self._applied_lsn = rec.lsn
             except Exception:
                 self._counters.inc("fused_fallbacks")
                 self._run_search(s_items, _release=False)
-                # the decomposed retry reuses the fused attempt's ids.  The
-                # rest of the drained batch is applied below: the
-                # reference returns here and leaves its futures hanging
-                self._apply_run(i_run, _ids=ids)
+                # the decomposed retry reuses the fused attempt's ids and —
+                # when the append got through — its WAL record: logging the
+                # run twice would replay it twice on recovery.  The rest of
+                # the drained batch is applied below: the reference returns
+                # here and leaves its futures hanging
+                self._apply_run(
+                    i_run, _ids=ids,
+                    _logged_lsn=None if rec is None else rec.lsn,
+                )
             else:
                 self._counters.inc(
                     {"insert": "inserts", "delete": "deletes",

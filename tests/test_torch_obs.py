@@ -3,11 +3,14 @@ and runtime-trace cases of ``tests/test_obs.py`` (ring wraparound and
 concurrency, stage/outcome/event-name registries, sampler strides,
 decompose, the estimator edge cases, and a real ``ServingRuntime`` on a
 CPU index: span stages with the compile-vs-execute split, terminal
-outcomes, ``reset_stats`` semantics, flight-recorder transitions).  The
-exporter, bundle and durability cases wait for ROADMAP queue 1 items 7
-and 8; the runtime raises ``NotImplementedError`` for them
-(``tests/test_torch_runtime.py``)."""
+outcomes, ``reset_stats`` semantics, flight-recorder transitions), and
+of its exporter, bundle and durability cases: Prometheus and Perfetto
+formats, the debug bundle, WAL and snapshot events, the shutdown bundle.
+The exporters' output is byte-equal to the reference's for the same
+input (the reference's ``obs.export`` imports no jax)."""
 
+import json
+import os
 import re
 import threading
 import time
@@ -20,13 +23,25 @@ from repro_torch.core.admission import QueueFull
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.metrics import ArrivalEstimator, percentile_summary
 from repro_torch.core.runtime import RuntimeConfig, ServingRuntime
+import repro.core  # noqa: F401  (the reference's obs needs its core first)
+from repro.obs import export as ref_export
 from repro_torch.obs import events as obs_events
+from repro_torch.obs.bundle import write_debug_bundle
 from repro_torch.obs.events import (
     EV_FAULT_INJECTED,
+    EV_SNAPSHOT_CUT,
+    EV_SNAPSHOT_PUBLISH,
     EV_WAL_FSYNC,
+    EV_WAL_ROTATE,
     EV_WORKER_RESTART,
     EVENT_CATALOG,
     FlightRecorder,
+)
+from repro_torch.obs.export import (
+    _prom_value,
+    flatten_metrics,
+    perfetto_trace,
+    prometheus_text,
 )
 from repro_torch.obs.trace import (
     OUTCOME_OK,
@@ -364,3 +379,146 @@ def test_worker_restart_emits_flight_event(base_index):
         assert restarts[0].fields["restarts"] == 1
     finally:
         rt.stop()
+
+
+# -------------------------------------------------------------- exporters --
+def test_prom_value_special_floats():
+    assert _prom_value(float("nan")) == "NaN"
+    assert _prom_value(float("inf")) == "+Inf"
+    assert _prom_value(float("-inf")) == "-Inf"
+    assert _prom_value(2.0) == "2.0"
+
+
+_PROM_LINE = re.compile(
+    r"^(# HELP [a-zA-Z_:][a-zA-Z0-9_:]* .+"
+    r"|# TYPE [a-zA-Z_:][a-zA-Z0-9_:]* (counter|gauge)"
+    r"|[a-zA-Z_:][a-zA-Z0-9_:]* (NaN|[+-]Inf|[-+0-9.e]+))$"
+)
+
+
+def test_prometheus_text_grammar_and_typing():
+    text = prometheus_text({"inserts": 3.0, "pending_mutations": 7.0,
+                            "percentiles_search_p50_ms": 1.25})
+    for line in text.strip().split("\n"):
+        assert _PROM_LINE.match(line), f"bad exposition line: {line!r}"
+    assert "# TYPE repro_inserts counter" in text
+    assert "# TYPE repro_pending_mutations gauge" in text
+    assert "# TYPE repro_percentiles_search_p50_ms gauge" in text
+    assert "repro_inserts 3.0" in text
+
+
+def test_perfetto_envelope_spans_and_instants():
+    tr = _mk_trace(marks=[(STAGE_ADMISSION, 0.001), (STAGE_ACK, 0.003)])
+    tr.outcome = OUTCOME_OK
+    rec = FlightRecorder(8)
+    rec.record_event(EV_WAL_ROTATE, t=0.002, segment=1)
+    env = perfetto_trace([tr], rec.snapshot())
+    json.loads(json.dumps(env))  # round-trips as JSON
+    assert env["displayTimeUnit"] == "ms"
+    xs = [e for e in env["traceEvents"] if e["ph"] == "X"]
+    ins = [e for e in env["traceEvents"] if e["ph"] == "i"]
+    assert len(xs) == 2 and len(ins) == 1
+    for e in xs:
+        assert e["ts"] >= 0 and e["dur"] > 0 and e["tid"] == 1
+        assert e["name"] in SPAN_STAGES
+    assert ins[0]["name"] == EV_WAL_ROTATE and ins[0]["s"] == "g"
+    # time_origin defaults to the earliest timestamp -> timeline starts at 0
+    assert min(e["ts"] for e in env["traceEvents"]) == 0
+
+
+def test_debug_bundle_roundtrip_and_jsonable_fallback(tmp_path):
+    rec = FlightRecorder(8)
+    rec.record_event(EV_SNAPSHOT_CUT, t=1.0, lsn=7)
+    path = write_debug_bundle(
+        str(tmp_path), reason="unit test!", events=rec.snapshot(),
+        extra={"np_scalar": np.int32(5), "opaque": object()},
+    )
+    assert os.path.dirname(path) == str(tmp_path / "debug")
+    payload = json.loads(open(path).read())
+    assert payload["reason"] == "unit test!"
+    assert payload["events"][0]["name"] == EV_SNAPSHOT_CUT
+    assert payload["extra"]["np_scalar"] == 5
+    assert payload["extra"]["opaque"].startswith("<object object")
+    assert not [f for f in os.listdir(tmp_path / "debug")
+                if f.endswith(".tmp")]  # atomic: no tmp residue
+
+
+def test_runtime_durability_events_and_shutdown_bundle(base_index, tmp_path):
+    x, make = base_index
+    rt = ServingRuntime(
+        make(),
+        RuntimeConfig(mode="parallel", nprobe=4, k=5, flush_min=1,
+                      flush_interval=0.02, trace_sample_rate=1.0,
+                      persist_dir=str(tmp_path), wal_sync_interval=1),
+    )
+    try:
+        rt.submit_insert(_data(4, seed=9)).result(timeout=60)
+        rt.snapshot(wait=True)
+        names = {e.name for e in rt.events()}
+        assert {EV_WAL_FSYNC, EV_WAL_ROTATE, EV_SNAPSHOT_CUT,
+                EV_SNAPSHOT_PUBLISH} <= names
+    finally:
+        rt.stop()
+    bundles = list((tmp_path / "debug").glob("bundle-shutdown-*.json"))
+    assert len(bundles) == 1
+    payload = json.loads(bundles[0].read_text())
+    assert payload["reason"] == "shutdown"
+    assert {e["name"] for e in payload["events"]} >= {EV_WAL_FSYNC}
+    assert payload["stats"]["inserts"] == 4
+    assert payload["config"]["persist_dir"] == str(tmp_path)
+    assert any(t["kind"] == "insert" for t in payload["traces"])
+
+
+def test_runtime_exporters_are_format_valid(base_index):
+    x, make = base_index
+    rt = ServingRuntime(
+        make(),
+        RuntimeConfig(mode="parallel", nprobe=4, k=5, flush_min=1,
+                      flush_interval=0.02, trace_sample_rate=1.0),
+    )
+    try:
+        for _ in range(3):
+            rt.submit_search(x[:2]).result(timeout=60)
+        text = rt.prometheus_text()
+        for line in text.strip().split("\n"):
+            assert _PROM_LINE.match(line), f"bad exposition line: {line!r}"
+        # the counters the runbook's example queries rely on are present
+        assert "repro_inserts" in text
+        assert "repro_percentiles_search_p50_ms" in text
+        env = rt.export_perfetto()
+        json.loads(json.dumps(env))
+        assert [e for e in env["traceEvents"] if e["ph"] == "X"]
+        flat = rt.metrics()
+        assert all(isinstance(v, float) for v in flat.values())
+        assert flat["percentiles_search_n"] == 3.0
+    finally:
+        rt.stop()
+
+
+def test_exporters_are_byte_equal_to_the_reference(base_index, tmp_path):
+    """One runtime's stats, traces and flight-recorder events through the
+    port's exporters and the reference's: the same bytes."""
+    x, make = base_index
+    rt = ServingRuntime(
+        make(),
+        RuntimeConfig(mode="parallel", nprobe=4, k=5, flush_min=1,
+                      flush_interval=0.02, trace_sample_rate=1.0,
+                      persist_dir=str(tmp_path)),
+    )
+    try:
+        rt.submit_search(x[:2]).result(timeout=60)
+        rt.submit_insert(_data(3, seed=11)).result(timeout=60)
+        rt.snapshot(wait=True)
+        stats = rt.stats()
+        traces, events = rt.traces(), rt.events()
+    finally:
+        rt.stop()
+    stats["nan_gauge"], stats["inf_gauge"] = float("nan"), float("inf")
+    flat = ref_export.flatten_metrics(stats)
+    assert flatten_metrics(stats) == flat
+    assert prometheus_text(flat) == ref_export.prometheus_text(flat)
+    assert prometheus_text(flat, "ns") == ref_export.prometheus_text(flat, "ns")
+    ours = json.dumps(perfetto_trace(traces, events), sort_keys=True)
+    theirs = json.dumps(ref_export.perfetto_trace(traces, events),
+                        sort_keys=True)
+    assert ours == theirs and '"ph": "X"' in ours and '"ph": "i"' in ours

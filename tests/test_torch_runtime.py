@@ -685,29 +685,37 @@ def test_runtime_keeps_every_state_tensor_in_place(mode):
     tbp.check_invariants(idx.state, idx.pool_cfg)
 
 
-def test_runtime_lanes_and_later_slices():
+def test_runtime_lanes_and_later_slices(tmp_path):
     """On the CPU the lanes have no streams; the durability and exporter
-    surfaces raise, naming their ROADMAP items."""
+    surfaces of the later slices (ROADMAP queue 1 items 7 and 8) run:
+    ``persist_dir`` publishes the pre-traffic snapshot at construction,
+    ``debug_bundle_dir`` takes the shutdown bundle, ``snapshot`` without a
+    persist dir raises, and the exporters serve."""
     x = _data(300, 16, seed=9)
     idx = build_ivf(x, n_clusters=4, block_size=16, max_chain=64,
                     capacity_vectors=4000, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ServingRuntime(idx, RuntimeConfig(persist_dir="unused"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ServingRuntime(idx, RuntimeConfig(debug_bundle_dir="unused"))
     rt = ServingRuntime(idx, RuntimeConfig(mode="parallel", nprobe=4, k=5))
     try:
         assert rt.lane_streams() == {"search": None, "mutation": None}
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(RuntimeError, match="persist_dir"):
             rt.snapshot()
-        with pytest.raises(NotImplementedError, match="item 7"):
-            ServingRuntime.recover(idx.cfg, "unused")
-        for call in (rt.metrics, rt.prometheus_text, rt.export_perfetto,
-                     lambda: rt.dump_debug_bundle("shutdown")):
-            with pytest.raises(NotImplementedError, match="item 8"):
-                call()
+        assert rt.dump_debug_bundle("shutdown") is None  # no destination
+        assert "repro_inserts" in rt.prometheus_text()
+        assert rt.export_perfetto()["displayTimeUnit"] == "ms"
+        assert all(isinstance(v, float) for v in rt.metrics().values())
     finally:
         rt.stop()
+    persist, bundles = tmp_path / "persist", tmp_path / "bundles"
+    rt = ServingRuntime(idx, RuntimeConfig(
+        mode="parallel", nprobe=4, k=5, persist_dir=str(persist),
+        debug_bundle_dir=str(bundles)))
+    try:
+        s = rt.stats()
+        assert s["snapshots"] == 1 and s["snapshot_lsn"] == s["wal_lsn"] == 0
+    finally:
+        rt.stop()
+    assert len(list((bundles / "debug").glob("bundle-shutdown-*.json"))) == 1
+    assert not (persist / "debug").exists()
 
 
 # ------------------------------------------------- kernel layer, two threads --

@@ -10,7 +10,9 @@ wait would open with ``torch.cuda._sleep`` on one lane's stream, then
 checks what the other lane saw.  Dispatches are made as the lanes make
 them (``_search_now``, ``_insert_now``) on a runtime whose worker threads
 are stopped, so the test decides the order; the last two tests drive the
-public API with the threads running.
+public API with the threads running.  The durability cases: a snapshot
+cut taken while an insert is still in flight on the mutation stream, and
+a runtime recovered on the card from a crashed one's persist directory.
 """
 
 from concurrent.futures import Future
@@ -20,9 +22,10 @@ import pytest
 import torch
 
 from repro_torch.core import insert as insmod
-from repro_torch.core.ivf import IVFIndex, IVFIndexConfig
+from repro_torch.core.ivf import IVFIndex, IVFIndexConfig, state_to_host
 from repro_torch.core.runtime import RuntimeConfig, ServingRuntime, _Timed
 from repro_torch.kernels import ops
+from repro_torch.persist import SNAP_SUBDIR, load_latest
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -47,11 +50,15 @@ def _around(modes, n, seed, which=None):
     return (modes[pick] + rng.normal(size=(n, modes.shape[1]))).astype(np.float32)
 
 
+def _index_cfg():
+    return IVFIndexConfig(n_clusters=16, dim=32, block_size=64, max_chain=64,
+                          capacity_vectors=20_000, nprobe=4, k=5,
+                          search_path="union_fused")
+
+
 def _runtime(mode="parallel", **kw):
     modes = _modes()
-    cfg = IVFIndexConfig(n_clusters=16, dim=32, block_size=64, max_chain=64,
-                         capacity_vectors=20_000, nprobe=4, k=5)
-    index = IVFIndex(cfg)
+    index = IVFIndex(_index_cfg())
     index.train(_around(modes, 2000, seed=1))
     index.add(_around(modes, 2000, seed=2))
     rt = ServingRuntime(index, RuntimeConfig(
@@ -215,3 +222,73 @@ def test_lanes_issue_on_their_own_streams(cuda):
             assert lanes["search"] == lanes["mutation"]
         else:
             assert lanes["search"].stream_id != lanes["mutation"].stream_id
+
+
+def _park_lanes(rt):
+    """Stop the worker threads and leave the WAL open (``stop()`` would
+    close it), so the test dispatches and cuts by hand."""
+    rt._stop.set()
+    for t in rt._threads:
+        t.join(30)
+        assert not t.is_alive()
+
+
+@pytest.mark.cuda
+def test_snapshot_cut_orders_after_the_mutation_stream(cuda, monkeypatch,
+                                                       tmp_path):
+    """The cut copies the state while an insert's tail still sleeps on the
+    mutation stream; the published snapshot must equal a host copy taken
+    after ``torch.cuda.synchronize()``, leaf by leaf."""
+    modes, rt = _runtime(persist_dir=str(tmp_path))
+    try:
+        _warm(rt, modes)
+    finally:
+        _park_lanes(rt)
+    _slow_insert_tail(monkeypatch)
+    ids, ev = _insert_now(rt, _around(modes, 640, seed=10, which=0))
+    assert not ev.query(), "the insert's tail must still be in flight"
+    rt.snapshot(wait=True)
+    torch.cuda.synchronize()
+    want, want_meta = state_to_host(rt.index.state)
+    state, _, manifest = load_latest(str(tmp_path / SNAP_SUBDIR),
+                                     device="cpu")
+    got, got_meta = state_to_host(state)
+    assert got_meta == want_meta  # every leaf's CRC
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], name)
+    assert (got["id_map"][ids] >= 0).all()
+    rt._wal.close()
+
+
+@pytest.mark.cuda
+def test_recovered_runtime_serves_the_ids_it_was_cut_from(cuda, tmp_path):
+    """Acked traffic, a snapshot, more traffic, then a crash (the runtime
+    is abandoned); the runtime recovered on the card answers with the
+    crashed index's ids."""
+    modes, rt = _runtime(persist_dir=str(tmp_path))
+    q = _around(modes, 64, seed=11)
+    try:
+        _warm(rt, modes)
+        ids = rt.submit_insert(_around(modes, 300, seed=12)).result(120)
+        rt.snapshot(wait=True)
+        rt.submit_delete(ids[:100]).result(120)
+        rt.submit_update(_around(modes, 50, seed=13), ids[100:150]
+                         ).result(120)
+        fresh = rt.submit_insert(_around(modes, 40, seed=14)).result(120)
+        s = rt.stats()
+        assert s["applied_lsn"] == s["wal_lsn"] > s["snapshot_lsn"] > 0
+    finally:
+        _park_lanes(rt)  # the crash: no drain, no final fsync, no bundle
+    torch.cuda.synchronize()
+    _, want = rt.index.search(q)
+    rt2 = ServingRuntime.recover(_index_cfg(), str(tmp_path), cfg=rt.cfg)
+    try:
+        assert rt2.index.device.type == "cuda"
+        assert rt2.recovery_report.verified
+        assert rt2.recovery_report.replayed_records == 3
+        _, got = rt2.submit_search(q).result(120)
+        np.testing.assert_array_equal(got, want)
+        _, own = rt2.submit_search(_around(modes, 40, seed=14)).result(120)
+        np.testing.assert_array_equal(own[:, 0], fresh)
+    finally:
+        rt2.stop()
