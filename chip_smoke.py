@@ -60,6 +60,25 @@ is resident, the recovered top-10 equals the crashed index's up to ties,
 the exporters parse, and the recovered runtime's ``stop()`` writes one
 shutdown bundle.
 
+After ``[union]``, the ``[analysis]`` phase holds the static analysis
+(``repro_torch.analysis``) to the card: one line per kernel instantiation
+built, from ptxas's report (registers, spill bytes, static shared memory)
+and the plans' dynamic shared memory and threads, with the blocks an SM
+holds by shared memory and by registers; it fails on a spill beyond the
+pins of ``smem.KNOWN_SPILLS`` or an instantiation no SM can place.  Then it
+counts the host syncs of one dispatch of ``union_fused`` (rerank off and
+on) on each SIFT1M index, of ``block_table``, ``chain_walk`` and one
+insert, delete and update step on the float32 index, under
+``torch.cuda.set_sync_debug_mode("warn")``, and fails unless each equals
+the op audit's pinned inventory (a search's readback counted as one
+more).  The ``[baselines]`` phase then loads the paper's comparison
+systems (``core/baselines.py``: ``FaissLikeIndex``, ``RaftLikeIndex`` on
+the card, ``RtCpuIndex`` on the host) with the float32 index's centroids
+and the same corpus (batches of 65,536), times the online insert batches
+and the search batches beside the block pool, and holds each to the block
+pool's float32 ``union_fused`` with rerank: recall@10 within 0.005, top-10
+ids equal up to ties for 99% of queries, the same row count.
+
 Phases print one line each.  The second-to-last line is the per-kernel
 JSON record (launches on the main path, error against the plain version,
 median ms of kernel and plain version, the card's bound); the [serve]
@@ -231,6 +250,9 @@ def phase_build() -> None:
                 log("ptxas", source=name, info=line.strip())
 
 
+INSERT_MS: dict = {}  # the main path's online insert ms, by payload dtype
+
+
 def build_index(cfg, corpus, online, device):
     """The main path's build: train, offline add, online insert batches."""
     from repro_torch.core.ivf import IVFIndex
@@ -284,6 +306,7 @@ def phase_main_path(base_cfg, corpus, online, queries, truth, device):
         cfg = dataclasses.replace(base_cfg, dtype=dtype)
         torch.cuda.reset_peak_memory_stats()
         index, t_train, t_add, insert_ms = build_index(cfg, corpus, online, device)
+        INSERT_MS[dtype] = [round(x, 2) for x in insert_ms]
         stats = index.stats()
         check(stats["num_dropped"] == 0, f"{dtype}: {stats['num_dropped']} inserts dropped")
         check(index.ntotal == len(corpus) + sum(len(b) for b in online),
@@ -679,6 +702,208 @@ def phase_union(indexes, queries, truth, vmax) -> list:
     return records
 
 
+def analysis_syncs(index, payload, queries, wanted) -> dict:
+    """The host syncs on the card of one dispatch of each op-audit program
+    named in ``wanted``, built on ``index`` (searches of QUERY_BATCH
+    queries, mutation steps of MUTATION_BATCH rows on a copy of the
+    state); prints an [analysis] line each and fails on a count other
+    than the op audit's pin (plus one for a search's readback)."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis import op_audit
+
+    dev, dim = index.device, index.cfg.dim
+    rng = np.random.default_rng(30)
+    vecs = torch.as_tensor(rng.normal(size=(MUTATION_BATCH, dim)).astype(
+        np.float32), device=dev)
+    ids = torch.arange(MUTATION_BATCH, dtype=torch.int32, device=dev)
+    geom = dataclasses.replace(op_audit.GEOM, nprobe=index.cfg.nprobe,
+                               k=index.cfg.k)
+    cases, _ = op_audit.programs(
+        payload, index.pool_cfg, index.state, index.pq,
+        torch.as_tensor(queries[:QUERY_BATCH], device=dev), vecs, ids,
+        ids + index.ntotal + 100_000, geom, chain_budget=index._chain_budget())
+    syncs = {}
+    for case in cases:
+        if case.name not in wanted:
+            continue
+        n, sites = op_audit.card_syncs(case)
+        want = op_audit.EXPECTED_SYNCS[case.name] + (case.kind == "search")
+        syncs[case.name] = n
+        log("analysis", program=case.name, card_syncs=n, inventory=want,
+            sites=",".join(sorted(set(sites))))
+        check(n == want, f"{case.name}: {n} host syncs on the card, the "
+              f"op audit pins {want} (with the readback)")
+    return syncs
+
+
+# the [analysis] phase: besides union_fused (rerank off and on) of each
+# payload, the programs whose host syncs it counts on the card
+ANALYSIS_F32_ONLY = ("search/block_table/float32", "search/chain_walk/float32",
+                     "mutation/insert/float32", "mutation/delete/float32",
+                     "mutation/update/float32")
+
+
+def phase_analysis(indexes, queries) -> None:
+    """The static analysis held to the card: ptxas's report of every
+    instantiation built (registers, spills, static shared memory) joined
+    with the plans' dynamic shared memory and threads, and the host syncs
+    of one dispatch of each ``union_fused`` payload (rerank off and on),
+    ``block_table``, ``chain_walk`` and one insert, delete and update step
+    on the SIFT1M indexes, under ``torch.cuda.set_sync_debug_mode``.
+    Fails if a kernel spills beyond its pin (``smem.KNOWN_SPILLS``) or an
+    SM cannot place one block, or a program's sync count differs from the
+    op audit's pinned inventory (plus one for a search's readback)."""
+    from repro_torch.analysis import op_audit, smem
+    from repro_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    rows = []
+    for name in build.sources():
+        rows += smem.ptxas_rows(name, build.build_log(name))
+    budgets = smem.card_budgets(rows)
+    for b in budgets:
+        log("analysis", source=b["source"], kernel=b["kernel"],
+            entry=b["entry"], registers=b["registers"],
+            spill_stores=b["spill_stores"], spill_loads=b["spill_loads"],
+            static_smem=b["static_smem"], dynamic_smem=b["dynamic_smem"],
+            threads=b["threads"], blocks_by_smem=b["blocks_by_smem"],
+            blocks_by_regs=b["blocks_by_regs"])
+    check(len(budgets) > 0, "no ptxas report parsed")
+    spills = smem.spill_findings(budgets)
+    check(not spills, f"kernels spill beyond their pins: {spills}")
+    # the pinned spills are an open fault (ROADMAP §3 item 5), not a pass
+    # of "no spill": say how many there are on every run
+    spilling = [b["entry"] for b in budgets
+                if b["spill_stores"] or b["spill_loads"]]
+    log("analysis-spills", spilling=len(spilling),
+        pinned=len(smem.KNOWN_SPILLS), no_spill=not spilling)
+    short = [b["entry"] for b in budgets
+             if min(b["blocks_by_smem"], b["blocks_by_regs"]) < 1]
+    check(not short, f"an SM cannot place one block of {short}")
+
+    syncs = {}
+    for dtype, index in indexes.items():
+        wanted = {f"search/union_fused/{dtype}",
+                  f"search/union_fused/{dtype}/rerank"}
+        if dtype == "float32":
+            wanted |= set(ANALYSIS_F32_ONLY)
+        syncs.update(analysis_syncs(index, dtype, queries, wanted))
+    prologue = op_audit.TraceCase("prologue/chain_budget", "prologue",
+                                  indexes["float32"]._chain_budget, (), 0)
+    n, _ = op_audit.card_syncs(prologue)
+    syncs[prologue.name] = n
+    want = op_audit.EXPECTED_PROLOGUE_SYNCS[prologue.name]
+    log("analysis", program=prologue.name, card_syncs=n, inventory=want)
+    check(n == want, f"{prologue.name}: {n} host syncs, pinned {want}")
+    log("analysis-phase", instantiations=len(budgets), programs=len(syncs),
+        seconds=round(time.perf_counter() - t_phase, 1))
+
+
+# the [baselines] phase: the paper's Alg. 1 systems beside the block pool
+BASELINE_LOAD_BATCH = 65_536
+RTCPU_BASE = N_BASE  # Rt-cpu's base; cut here if its per-row loop is too slow
+
+
+def phase_baselines(index, corpus, online, queries, truth, vmax) -> None:
+    """FaissLikeIndex, RaftLikeIndex and RtCpuIndex at SIFT1M width, with
+    the f32 block-pool index's centroids (no second k-means): the base
+    loaded in batches of BASELINE_LOAD_BATCH, then the online batches
+    timed one by one (ms per ONLINE_BATCH rows, beside the block pool's
+    ``IVFIndex.add``, the paper's Alg. 1 against Alg. 2), the held-out
+    queries searched in batches of QUERY_BATCH (ms per batch, the first
+    left out), and recall@10.  Each must match the block pool's float32
+    ``union_fused`` with rerank: recall within 0.005, the top-10 ids equal
+    up to ties for at least 99% of queries, the same row count."""
+    import numpy as np
+    import torch
+    from repro_torch.core import baselines
+    from repro_torch.kernels import ref
+
+    t_phase = time.perf_counter()
+    cents = index.state.centroids.cpu().numpy()
+    cfg = index.cfg
+    # the block pool's float32 union_fused with rerank: the yardstick
+    index.cfg.rerank = True
+    d_pool, i_pool, pool_ms = [], [], []
+    for off in range(0, len(queries), QUERY_BATCH):
+        t0 = time.perf_counter()
+        d, i = index.search(queries[off : off + QUERY_BATCH])
+        pool_ms.append((time.perf_counter() - t0) * 1e3)
+        d_pool.append(d)
+        i_pool.append(i)
+    index.cfg.rerank = False
+    d_pool, i_pool = np.concatenate(d_pool), np.concatenate(i_pool)
+    rec_pool = recall_at_10(i_pool, truth)
+    log("baselines", system="block_pool", base=len(corpus),
+        insert_ms_per_batch=INSERT_MS.get("float32"), batch_rows=ONLINE_BATCH,
+        search_ms_median=round(statistics.median(pool_ms[1:]), 3),
+        search_ms_first=round(pool_ms[0], 3), recall_at_10=round(rec_pool, 4),
+        ntotal=index.ntotal)
+    qn = (queries.astype(np.float64) ** 2).sum(1)
+    atol = 1e-6 * (qn + vmax)
+    for name, make in (
+        ("faiss_like", lambda: baselines.FaissLikeIndex(
+            cfg.n_clusters, cfg.dim, nprobe=cfg.nprobe, k=cfg.k)),
+        ("raft_like", lambda: baselines.RaftLikeIndex(
+            cfg.n_clusters, cfg.dim, nprobe=cfg.nprobe, k=cfg.k)),
+        ("rt_cpu", lambda: baselines.RtCpuIndex(
+            cfg.n_clusters, cfg.dim, block_size=cfg.block_size,
+            nprobe=cfg.nprobe, k=cfg.k)),
+    ):
+        t0 = time.perf_counter()
+        base = corpus if name != "rt_cpu" else corpus[:RTCPU_BASE]
+        b = make()
+        b.train(base, centroids=cents)
+        for off in range(0, len(base), BASELINE_LOAD_BATCH):
+            b.add(base[off : off + BASELINE_LOAD_BATCH])
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        insert_ms = []
+        for batch in online:
+            t1 = time.perf_counter()
+            b.add(batch)
+            torch.cuda.synchronize()
+            insert_ms.append((time.perf_counter() - t1) * 1e3)
+        search_ms, ds, is_ = [], [], []
+        for off in range(0, len(queries), QUERY_BATCH):
+            t1 = time.perf_counter()
+            d, i = b.search(queries[off : off + QUERY_BATCH])
+            search_ms.append((time.perf_counter() - t1) * 1e3)
+            ds.append(d)
+            is_.append(i)
+        d, i = np.concatenate(ds), np.concatenate(is_).astype(np.int64)
+        rec = recall_at_10(i, truth)
+        log("baselines", system=name, base=len(base),
+            cut=("none" if len(base) == len(corpus)
+                 else f"base {len(base)} of {len(corpus)}"),
+            load_s=round(load_s, 2),
+            insert_ms_per_batch=[round(x, 2) for x in insert_ms],
+            batch_rows=ONLINE_BATCH,
+            search_ms_median=round(statistics.median(search_ms[1:]), 3),
+            search_ms_first=round(search_ms[0], 3),
+            recall_at_10=round(rec, 4), pool_recall_at_10=round(rec_pool, 4),
+            ntotal=b.ntotal, seconds=round(time.perf_counter() - t0, 1))
+        check(abs(rec - rec_pool) <= 0.005 or len(base) != len(corpus),
+              f"{name}: recall@10 {rec} vs the block pool's {rec_pool}")
+        if len(base) == len(corpus):
+            check(b.ntotal == index.ntotal,
+                  f"{name}: ntotal {b.ntotal} vs the block pool's {index.ntotal}")
+            faults = ref.topk_mismatches(
+                torch.as_tensor(d), torch.as_tensor(i),
+                torch.as_tensor(d_pool), torch.as_tensor(i_pool.astype(np.int64)),
+                rtol=1e-5, atol=torch.as_tensor(atol))
+            bad_rows = {int(f.split()[1]) for f in faults}
+            agree = 1 - len(bad_rows) / len(queries)
+            log("baselines", system=name, ids_equal_up_to_ties=round(agree, 4))
+            check(agree >= 0.99, f"{name}: top-10 equal for {agree:.4f} of "
+                  f"queries: {faults[:3]}")
+        del b
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("baselines-phase", seconds=round(time.perf_counter() - t_phase, 1))
+
+
 def phase_churn(index, dtype, indexed, queries, vmax, upd_ids, upd_vecs) -> None:
     """The mutation lane at full width: the traffic of a feed or ad index
     whose oldest content expires while live items are refreshed.  Deletes
@@ -1012,6 +1237,33 @@ def runtime_dispatch(index, queries, fresh, reps: int = 100) -> None:
     log("runtime-dispatch", reps=reps, unit="ms p50, p99", **fields)
 
 
+_PROFILER_STARTED = False
+
+
+def start_profiler_once() -> None:
+    """Start and stop the profiler once in this process, before its first
+    timed run: the first start in a process took 9.5-10.2 s on the H100,
+    longer than the second a run profiles."""
+    global _PROFILER_STARTED
+    if _PROFILER_STARTED:
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]):
+        pass
+    _PROFILER_STARTED = True
+
+
+def profiled_window_ms(t_start: float, t_stop: float, tag: str) -> float:
+    """The ms between the profiler's start and the run's end; raises
+    unless positive (a profiler that started after the traffic ended saw
+    none of it)."""
+    ms = (t_stop - t_start) * 1e3
+    check(ms > 0, f"runtime {tag}: profiled window {ms:.1f} ms is not "
+          "positive (the profiler started after the run ended)")
+    return ms
+
+
 def runtime_run(index, queries, fresh, *, tag, mode, qps, seconds, kernels,
                 rerank=False, vmax=1.0, found="rank0") -> dict:
     """One open-loop run of single-query searches at ``qps`` and 16-row
@@ -1035,6 +1287,7 @@ def runtime_run(index, queries, fresh, *, tag, mode, qps, seconds, kernels,
     from repro_torch.kernels import ops, ref
     from repro_torch.launch.serve import drive
 
+    start_profiler_once()
     t_run = time.perf_counter()
     rt = ServingRuntime(index, RuntimeConfig(
         mode=mode, nprobe=index.cfg.nprobe, k=index.cfg.k,
@@ -1068,7 +1321,7 @@ def runtime_run(index, queries, fresh, *, tag, mode, qps, seconds, kernels,
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             time.sleep(max(0.0, t_stop - t0))
-        prof_ms = (t_stop - t0) * 1e3
+        prof_ms = profiled_window_ms(t0, t_stop, tag)
         generator.join(seconds + 120)
         check(not generator.is_alive(), f"runtime {tag}: the load generator hung")
         stats = runtime_served_all(tag, [f for _, _, f in sent], rt)
@@ -1750,14 +2003,13 @@ def phase_pq(device, n_rows: int = N_PQ_ROWS, scale: float = 1.0):
     from repro_torch.core import search as S
     from repro_torch.core.ivf import IVFIndex
     from repro_torch.kernels import ivf_scan, ops, pq_adc, ref
+    from repro_torch.launch.serve import default_pool_blocks
 
     t_phase = time.perf_counter()
     cfg = ivfpq_dssm40m(scale)
     # the config's default pool has 158,141 blocks for 160,000 lists
     # (ROADMAP "Faults found"): one block per list + the capacity's blocks
-    cfg = dataclasses.replace(
-        cfg, pool_blocks=cfg.n_clusters + cfg.capacity_vectors // cfg.block_size + 16,
-    )
+    cfg = dataclasses.replace(cfg, pool_blocks=default_pool_blocks(cfg))
     n_online = ONLINE_BATCHES * ONLINE_BATCH
     n_queries = N_QUERY_BATCHES * QUERY_BATCH
     sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
@@ -1939,6 +2191,9 @@ def phase_pq(device, n_rows: int = N_PQ_ROWS, scale: float = 1.0):
         ))
     pq_route(index, "union_fused")
     phase_profile({"pq": index}, queries)
+    # the [analysis] phase's sync count for the PQ payload's union_fused
+    analysis_syncs(index, "pq", queries,
+                   ("search/union_fused/pq", "search/union_fused/pq/rerank"))
 
     # one delete batch and one update batch
     dead = np.arange(MUTATION_BATCH, dtype=np.int32)
@@ -2317,6 +2572,7 @@ def main() -> int:
     from repro_torch.core.search import exact_search
     from repro_torch.data.synthetic import sift_like
     from repro_torch.kernels import ops
+    from repro_torch.launch.serve import default_pool_blocks
 
     t_start = time.perf_counter()
     log("env", python=sys.version.split()[0], torch=torch.__version__,
@@ -2331,7 +2587,7 @@ def main() -> int:
     cfg = ivfflat_sift1m(1.0)
     cfg = dataclasses.replace(
         cfg, search_path="union_fused",
-        pool_blocks=cfg.n_clusters + cfg.capacity_vectors // cfg.block_size + 16,
+        pool_blocks=default_pool_blocks(cfg),
     )
     n_online = ONLINE_BATCHES * ONLINE_BATCH
     n_queries = N_QUERY_BATCHES * QUERY_BATCH
@@ -2363,6 +2619,9 @@ def main() -> int:
     phase_paths_agree(indexes, queries, vmax)
     phase_profile(indexes, queries)
     records += phase_union(indexes, queries, truth, vmax)
+    # the static analysis on the card, then the paper's baselines
+    phase_analysis(indexes, queries)
+    phase_baselines(indexes["float32"], corpus, online, queries, truth, vmax)
 
     # the mutation lane, on the float32 and int8 indexes
     del indexes["bfloat16"]

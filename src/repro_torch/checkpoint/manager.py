@@ -37,6 +37,13 @@ from typing import Any, Iterator, Optional
 import numpy as np
 import torch
 
+#: manifest.json key names (file-format constants, as persist.snapshot's:
+#: renaming one breaks every checkpoint written before)
+MANIFEST_STEP_KEY = "step"
+MANIFEST_TREEDEF_KEY = "treedef"
+MANIFEST_N_LEAVES_KEY = "n_leaves"
+MANIFEST_TIME_KEY = "time"
+
 
 class CheckpointCorruption(RuntimeError):
     """A checkpoint dir exists but cannot be trusted (missing leaves,
@@ -151,10 +158,10 @@ class CheckpointManager:
         os.makedirs(tmp)
         np.savez(os.path.join(tmp, "shard_0.npz"), *host)
         manifest = {
-            "step": step,
-            "treedef": treedef,
-            "n_leaves": len(host),
-            "time": time.time(),
+            MANIFEST_STEP_KEY: step,
+            MANIFEST_TREEDEF_KEY: treedef,
+            MANIFEST_N_LEAVES_KEY: len(host),
+            MANIFEST_TIME_KEY: time.time(),
             **extra,
         }
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -235,7 +242,7 @@ class CheckpointManager:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         data = np.load(os.path.join(d, "shard_0.npz"))
-        n = manifest.get("n_leaves")
+        n = manifest.get(MANIFEST_N_LEAVES_KEY)
         if n is None or n != len(data.files):
             raise CheckpointCorruption(
                 f"{d}: manifest says {n} leaves, archive holds "

@@ -29,8 +29,7 @@ per batch.  Sites (see ``repro_torch.core.runtime``):
     queued requests past their deadlines without touching wall-clock
     tuning.
 
-The durability layer (ROADMAP queue 1 item 7, not ported yet) adds four
-more sites:
+The durability layer (``repro_torch.persist``) adds four more sites:
 
 ``wal_append``
     Immediately before a mutation batch's WAL record is written — a raise

@@ -286,6 +286,8 @@ class IVFIndex:
         b = x.shape[0]
         if ids is None:
             ids = np.arange(self._next_id, self._next_id + b, dtype=np.int32)
+            # the serving runtime allocates ids itself, under _state_lock:
+            # counter-ok: single writer by contract
             self._next_id += b
         ids = np.asarray(ids, np.int32)
         self.state = self._insert_fn(self.state, x, torch.from_numpy(ids))

@@ -276,23 +276,29 @@ class _Step:
     a fresh checkout, then ctypes), which the reference's trace-cache
     counter sees as a jit compile."""
 
-    __slots__ = ("fn", "dispatches")
+    __slots__ = ("fn", "dispatches", "_lock")
 
     def __init__(self, fn):
         self.fn = fn
         self.dispatches = 0
+        # two threads can dispatch one step (a worker still running past
+        # stop()'s join timeout, and the drain): a bare += loses counts
+        self._lock = threading.Lock()
 
     def __call__(self, *args):
-        self.dispatches += 1
+        with self._lock:
+            self.dispatches += 1
         return self.fn(*args)
 
 
-class _Fence:
+class _Fence:  # lock-guard: _state_lock [entered, before]
     """A mutation step calls this right before its first write to the
     state.  It takes ``_state_lock`` (unless the dispatcher holds it
     already), runs ``before`` (the paired search of a fused dispatch), and
     makes the mutation stream wait on the last search dispatched before
-    it.  Idempotent; ``close`` releases what it took."""
+    it.  Idempotent; ``close`` releases what it took.  ``entered`` is true
+    exactly while ``_state_lock`` is held for the step, by the fence or by
+    its dispatcher (the lint's ``lock-guard`` annotation relies on it)."""
 
     def __init__(self, rt: "ServingRuntime", take_lock: bool, before=None):
         self.rt = rt
@@ -313,6 +319,7 @@ class _Fence:
     def close(self) -> None:
         if self.entered and self.take_lock:
             self.rt._state_lock.release()
+        self.entered = False
 
 
 class _Record:
@@ -817,7 +824,11 @@ class ServingRuntime:
         """``_recovered`` is internal: only the ``recover`` classmethod may
         set it, after replaying the directory's history into ``index`` —
         it is what licenses opening a persist_dir that already holds data."""
-        self.index = index  # guarded-by: _state_lock [state, _next_id]
+        # the state binding: read under either lock, rebound only under
+        # both (every writer holds _write_lock through its step and takes
+        # _state_lock at its fence)
+        # guarded-by: _state_lock|_write_lock [state]; _state_lock [_next_id]
+        self.index = index
         self.cfg = cfg
         self.pool_cfg = index.pool_cfg
         self._faults = faults if faults is not None else NO_FAULTS
@@ -1095,29 +1106,38 @@ class ServingRuntime:
         with self._s_lane.scope():
             return self._current_budget()
 
-    def _mutate(self, kind: str, args: tuple, *, locked: bool = False,
-                before=None, record: Optional[_Record] = None):
+    def _mutate(self, kind: str, args: tuple, *,
+                record: Optional[_Record] = None):
         """Run one mutation step on the mutation stream and record its
         event; returns the event (``None`` on the CPU).  The step holds
-        ``_write_lock`` throughout and takes ``_state_lock`` at its fence
-        (``locked``: the caller holds both).  ``record``, the run's WAL
-        record, is appended first, before the step's read-only front."""
-        with contextlib.nullcontext() if locked else self._write_lock:
-            if record is not None:
-                record()
-            fence = _Fence(self, take_lock=not locked, before=before)
-            try:
-                with self._m_lane.scope():
-                    dev = [self._to_device(a) for a in args]
-                    self._mutation_fns[kind](self.index.state, *dev, fence)
-                    fence()  # a step that wrote nothing still orders
-            finally:
-                if fence.entered:
-                    # later searches wait on whatever the step enqueued,
-                    # even when it failed midway
-                    ev = self._mutation_event = self._m_lane.record()
-                    self._budget = None  # chains may have grown
-                fence.close()
+        ``_write_lock`` throughout and takes ``_state_lock`` at its fence.
+        ``record``, the run's WAL record, is appended first, before the
+        step's read-only front."""
+        with self._write_lock:
+            return self._mutate_locked(kind, args, take_lock=True,
+                                       record=record)
+
+    # holds: _write_lock
+    def _mutate_locked(self, kind: str, args: tuple, *, take_lock: bool,
+                       before=None, record: Optional[_Record] = None):
+        """``_mutate`` with ``_write_lock`` held by the caller, and
+        ``_state_lock`` too unless ``take_lock``; ``before`` runs at the
+        fence, holding ``_state_lock``."""
+        if record is not None:
+            record()
+        fence = _Fence(self, take_lock=take_lock, before=before)
+        try:
+            with self._m_lane.scope():
+                dev = [self._to_device(a) for a in args]
+                self._mutation_fns[kind](self.index.state, *dev, fence)
+                fence()  # a step that wrote nothing still orders
+        finally:
+            if fence.entered:
+                # later searches wait on whatever the step enqueued,
+                # even when it failed midway
+                ev = self._mutation_event = self._m_lane.record()
+                self._budget = None  # chains may have grown
+            fence.close()
         return ev
 
     def _current_budget(self) -> int:  # holds: _state_lock
@@ -1200,8 +1220,8 @@ class ServingRuntime:
         if key not in self._fused_steps:
             _search = self._make_search(budget, nprobe, rerank)
 
-            def _fused(queries, qvalid, m_args):
-                # called holding _write_lock and _state_lock
+            def _fused(queries, qvalid, m_args):  # holds: _write_lock, _state_lock
+                # the dispatcher (_run_fused) calls it holding both locks
                 # one dispatch, two streams: the run's read-only front on
                 # the mutation stream, the search on the search stream at
                 # the run's fence, the run's writes after the search — so
@@ -1215,8 +1235,8 @@ class ServingRuntime:
                         )
                         self._search_event = self._s_lane.record()
 
-                ev = self._mutate(kind, m_args, locked=True,
-                                  before=search_first)
+                ev = self._mutate_locked(kind, m_args, take_lock=False,
+                                         before=search_first)
                 return out["d"], out["i"], ev
 
             self._fused_steps[key] = _Step(_fused)
@@ -2308,11 +2328,14 @@ class ServingRuntime:
         after the lock drops (dispatch must not block submitters)."""
         items: list[_Timed] = []
         with self._submit_lock:
-            try:
-                it = self._insert_q.get_nowait()
-            except queue.Empty:
-                pass
-            else:
+            # every queued item, as _drain_inserts takes them: a pull of
+            # one a turn lets the queue, and the acks, grow without bound
+            # whenever a turn slows (the reference pulls one)
+            while True:
+                try:
+                    it = self._insert_q.get_nowait()
+                except queue.Empty:
+                    break
                 if it.trace is not None:
                     it.trace.stamp(STAGE_QUEUE)
                 self._serial_pending.append(it)

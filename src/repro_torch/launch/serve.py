@@ -15,6 +15,7 @@ the runtime through them.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Optional
 
@@ -131,6 +132,15 @@ def _drive(runtime: ServingRuntime, corpus, *, qps_search, qps_insert,
     return rejected
 
 
+def default_pool_blocks(cfg) -> int:
+    """Blocks of a pool that holds every list of ``cfg`` at capacity: one
+    partial tail block a list, the capacity in whole blocks, and 16 spare.
+    The configs' own sizing gives SIFT1M 3969 blocks for 4000 lists and
+    DSSM 158,141 for 160,000, fewer than a full build needs (rows are
+    dropped); this gives 5969 and 238,141 at scale 1.0."""
+    return cfg.n_clusters + cfg.capacity_vectors // cfg.block_size + 16
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--index", default="ivfflat_sift1m",
@@ -143,6 +153,8 @@ def main() -> None:
     ap.add_argument("--duration", type=float, default=5.0)
     ap.add_argument("--device", default=None,
                     help="default: the card; 'cpu' runs the plain versions")
+    ap.add_argument("--pool-blocks", type=int, default=None,
+                    help="blocks of the pool (default: default_pool_blocks)")
     args = ap.parse_args()
 
     if args.index == "ivfflat_sift1m":
@@ -151,6 +163,8 @@ def main() -> None:
     else:
         cfg = ivfpq_dssm40m(args.scale)
         corpus = dssm_like(int(40_000_000 * args.scale), cfg.dim, seed=0)
+    cfg = dataclasses.replace(
+        cfg, pool_blocks=args.pool_blocks or default_pool_blocks(cfg))
 
     print(f"[serve] building {args.index} at scale {args.scale}: "
           f"{len(corpus)} vectors, {cfg.n_clusters} lists, T_m={cfg.block_size}")
@@ -158,6 +172,10 @@ def main() -> None:
     index.train(corpus)
     for off in range(0, len(corpus), 65536):
         index.add(corpus[off : off + 65536])
+    dropped = index.stats()["num_dropped"]
+    assert dropped == 0, (
+        f"the build dropped {dropped} rows: --pool-blocks "
+        f"{cfg.pool_blocks} is too small for {cfg.n_clusters} lists")
 
     rt = ServingRuntime(
         index, RuntimeConfig(mode=args.mode, nprobe=cfg.nprobe, k=cfg.k,
