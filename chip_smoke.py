@@ -46,7 +46,27 @@ throughput), with ``paged_decode_attention`` once per layer and step; it
 holds the logits to
 the contiguous-cache decode on the same tokens and records the kernel at
 the served shapes, at a 32,768-position context, and at pool blocks of 64
-positions and a GQA group of 16 heads.
+positions and a GQA group of 16 heads; the contiguous oracle runs
+``prefill`` over the prompts (its last logits held to the paged path's)
+and then ``decode_step``.
+
+After ``[lm]``, ``[moe]`` serves the MoE decoders llama4-maverick (128
+experts, top-1) and then kimi-k2 (384 experts, top-8, dh 112) at full
+width, depth cut to one layer (one layer's experts are 32.2 and 33.8 GB),
+16 sequences of a 64-token prompt and 16 generated tokens through the
+paged decode, with the drop fraction and the contiguous ``prefill`` +
+``decode_step`` oracle held on the rows whose routing both paths share,
+and records the paged kernel at their shapes.  ``[attn-compare]`` times
+the chunked attention of the training path beside SDPA (logged only).
+``[train]`` trains qwen3-1.7b at full width and depth (2.03 B bf16
+parameters, remat) on batches of 2 x 4096 tokens: 6 AdamW steps, then 2
+of Adafactor and 2 of 8-bit Adam from fresh optimizer state, with step
+ms, tokens/s, model FLOPs against the bf16 peak and peak memory, and one
+full-size checkpoint saved and restored bit for bit.
+``[train-parity]`` trains the float32 SMOKE config 3 steps on the card
+and on the CPU from the same weights, and ``[train-restart]`` runs the
+launcher (``python -m repro_torch.launch.train``) for 4 steps, restarts
+it to 6 and holds it to one uninterrupted 6-step run.
 
 After ``[runtime]``, the ``[durability]`` phase serves the churned float32
 SIFT1M index through a fused-mode ``ServingRuntime`` with a mutation WAL
@@ -95,6 +115,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -167,6 +188,41 @@ ATTN_RTOL, ATTN_ATOL_RMS = 2.0**-7, 1e-2
 # SDPA (the library yardstick) rounds its softmax weights to bf16 before
 # the second product: held to the same plain version, 5x looser
 LIBRARY_ATTN_SLACK = 5
+# the [moe] phase: the MoE decoders at full width, depth cut to one layer
+# (one layer's experts are 32.2 and 33.8 GB in bf16; all layers 0.8/2 TB)
+MOE_ARCHS = ("llama4-maverick-400b-a17b", "kimi-k2-1t-a32b")
+MOE_LAYERS = 1
+MOE_BATCH, MOE_PROMPT, MOE_GEN = 16, 64, 16
+# routing is discontinuous: the paged kernel keeps its softmax weights in
+# float32 where the contiguous decode rounds them to bf16, so a router
+# input may move by a bf16 unit and a near tie flip an expert (and, past
+# capacity, another row's kept pairs).  Logits are held within
+# LM_LOGIT_TOL on the rows whose experts and kept pairs are equal in both
+# calls; at least this share of the decode rows must be such rows
+MOE_MIN_MATCHED = 0.5
+# K/V rows of one token computed in a [B, 1, D] and in a [B, S, D]
+# product: bf16 roundings of the same sums, a unit or two apart
+KV_RTOL, KV_ATOL_RMS = 2.0**-6, 1e-2
+# the [train] phase: qwen3-1.7b at full width and depth, train_4k's
+# sequence, its global batch of 256 cut to TRAIN_BATCH
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_BATCH = 2
+TRAIN_STEPS = (("adamw", 6), ("adafactor", 2), ("adam8bit", 2))
+# [train-parity]: AdamW on the float32 SMOKE config, on the card and on
+# the CPU from the same weights: float32 sums in another order, ~1e-6 of
+# a loss of ~6; lr 1e-3 moves a parameter by ~1e-3 a step, a fault by
+# as much
+PARITY_STEPS, PARITY_BATCH, PARITY_SEQ = 3, 2, 64
+PARITY_LOSS_TOL, PARITY_PARAM_TOL = 1e-4, 1e-4
+# [train-restart]: the launcher's adafactor run of 4 steps, restarted to
+# 6, against 6 in one run.  The restart restores the bf16 weights and the
+# state bit for bit; the runs may differ where a kernel adds in another
+# order (atomics), by a bf16 unit in a few weights.  Printed losses
+# (4 decimals) within RESTART_LOSS_TOL, and at most RESTART_BITS_SHARE of
+# the step-6 checkpoints' elements not bit-equal
+RESTART_STEPS, RESTART_EVERY, RESTART_SEQ = (4, 6), 2, 4096
+RESTART_LOSS_TOL, RESTART_BITS_SHARE = 5e-3, 1e-3
+RESTART_DISK_BYTES = 22e9  # two runs' checkpoints of 4.06 GB, kept 3 deep
 
 
 def log(phase: str, **fields) -> None:
@@ -2245,6 +2301,15 @@ def _leaves(tree: dict):
         yield from _leaves(v) if isinstance(v, dict) else (v,)
 
 
+def _n_params(params: dict, cfg) -> int:
+    """The parameters ``LMConfig.n_params`` counts: every leaf but the
+    qk-norm scales and the q/k/v biases, which its formula leaves out."""
+    attn = params["layers"]["attn"]
+    extra = sum(attn[n].numel() for n in ("q_scale", "k_scale", "bq", "bk", "bv")
+                if n in attn)
+    return sum(t.numel() for t in _leaves(params)) - extra
+
+
 def phase_lm(device="cuda", cfg=None) -> list:
     """llama3-8b at full width and depth (weights drawn on the card from
     seed 0) served through the paged-KV decode: LM_BATCH sequences, each a
@@ -2255,11 +2320,13 @@ def phase_lm(device="cuda", cfg=None) -> list:
     tokens/s, the paged attention's share of a step's device time
     (torch.profiler over LM_PROFILE_STEPS generated steps, left out of the
     step times), peak memory; every step launches
-    the kernel once per layer.  The contiguous-cache ``decode_step`` then
-    runs on the same weights and the same (teacher-forced) tokens: logits
-    within LM_LOGIT_TOL, greedy tokens equal wherever the paged logits'
-    top-2 margin exceeds twice that (each of the two logits may move by
-    it).  Returns the JSON records of the kernel at the served shapes and
+    the kernel once per layer.  The contiguous cache then takes the same
+    weights and the same (teacher-forced) tokens: ``prefill`` of the
+    prompts (timed after one warm call; its last logits within
+    LM_LOGIT_TOL of the paged path's at the last prompt step), then
+    ``decode_step`` from position LM_PROMPT: logits within LM_LOGIT_TOL,
+    greedy tokens equal wherever the paged logits' top-2 margin exceeds
+    twice that (each of the two logits may move by it).  Returns the JSON records of the kernel at the served shapes and
     at ``LM_SHAPES["decode_32k"]``'s context.  ``cfg`` (default llama3-8b's
     full config) is for a rehearsal at a small size."""
     import numpy as np
@@ -2267,7 +2334,7 @@ def phase_lm(device="cuda", cfg=None) -> list:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.base import get_arch
     from repro_torch.kernels import ops
-    from repro_torch.models.transformer import decode_step, init_kv_cache, init_lm
+    from repro_torch.models.transformer import decode_step, init_kv_cache, init_lm, prefill
     from repro_torch.serving.paged_lm import init_paged_kv, make_paged_decode_fn
 
     t_phase = time.perf_counter()
@@ -2278,7 +2345,7 @@ def phase_lm(device="cuda", cfg=None) -> list:
     t0 = time.perf_counter()
     params = init_lm(0, cfg, device=device)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = _n_params(params, cfg)
     weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     check(n_params == cfg.n_params, f"lm: {n_params} parameters, config says {cfg.n_params}")
     per_seq = steps // LM_BLOCK
@@ -2370,24 +2437,40 @@ def phase_lm(device="cuda", cfg=None) -> list:
         peak_allocated_gb=round(torch.cuda.max_memory_allocated() / 2**30, 3),
         logits_buffer_gb=round(logits.numel() * logits.element_size() / 2**30, 3))
 
-    # the contiguous cache on the same weights and tokens
+    # the contiguous cache on the same weights and tokens: prefill of the
+    # prompts, then decode_step from cache_len = LM_PROMPT
     cache = init_kv_cache(cfg, b, steps, device=device)
+    prompts = fed[:LM_PROMPT].T.contiguous()  # [B, LM_PROMPT]
+    prefill(params, cfg, prompts, cache)  # warm: the first call's allocations
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clg, cache = prefill(params, cfg, prompts, cache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_err = float((clg.float() - logits[LM_PROMPT - 1].float()).abs().max())
     errs, cms, compared, agreed = [], [], 0, 0
-    for s in range(steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        clg, cache = decode_step(params, cfg, fed[s], cache, s)
-        torch.cuda.synchronize()
-        cms.append((time.perf_counter() - t0) * 1e3)
+    for s in range(LM_PROMPT - 1, steps):
+        if s >= LM_PROMPT:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            clg, cache = decode_step(params, cfg, fed[s], cache, s)
+            torch.cuda.synchronize()
+            cms.append((time.perf_counter() - t0) * 1e3)
         plg = logits[s].float()
         errs.append((clg.float() - plg).abs().max())
-        if LM_PROMPT - 1 <= s < steps - 1:  # its argmax was fed at s + 1
+        if s < steps - 1:  # its argmax was fed at s + 1
             top2 = plg.topk(2, dim=-1).values
             sure = (top2[:, 0] - top2[:, 1]) > 2 * LM_LOGIT_TOL
             same = torch.argmax(clg.float(), -1).to(torch.int32) == fed[s + 1]
             compared += int(sure.sum())
             agreed += int((same & sure).sum())
     errs = torch.stack(errs).cpu()
+    log("lm-prefill", batch=b, prompt=LM_PROMPT, prefill_ms=round(prefill_ms, 3),
+        prompt_tokens_per_s=round(b * LM_PROMPT / (prefill_ms / 1e3), 1),
+        attn_chunk=cfg.attn_chunk, last_logits_max_abs_err=prefill_err,
+        tol=LM_LOGIT_TOL)
+    check(prefill_err <= LM_LOGIT_TOL,
+          f"lm: prefill's last logits and the paged step's differ by {prefill_err}")
     log("lm-check", tol=LM_LOGIT_TOL, max_abs_err=float(errs.max()),
         median_step_max_err=float(errs.median()),
         logit_rms=round(float(torch.stack([lg.float().pow(2).mean() for lg in logits])
@@ -2401,84 +2484,99 @@ def phase_lm(device="cuda", cfg=None) -> list:
     return lm_kernel_records(cfg, params, state, counts, device, t_phase)
 
 
+def _paged_plain_f32(q, kp, vp):
+    """The paged attention's plain version in float32 on the same bf16
+    values (the kernel computes in float32), its result rounded to q's
+    dtype as the kernel rounds it."""
+    from repro_torch.kernels import ref
+
+    kf, vf = kp.float(), vp.float()
+    return lambda *rest: ref.paged_decode_attention_ref(
+        q.float(), kf, vf, *rest).to(q.dtype)
+
+
+def _paged_atol(name, want) -> float:
+    rms = float(want.float().pow(2).mean().sqrt())
+    log("attn-tol", name=name, output_rms=rms, rtol=ATTN_RTOL,
+        atol=ATTN_ATOL_RMS * rms)
+    return ATTN_ATOL_RMS * rms
+
+
+def paged_attn_record(name, q, kp, vp, tables, lengths, launches, layers=None):
+    """``paged_decode_attention`` against its plain version (within
+    ATTN_RTOL of each output plus ATTN_ATOL_RMS of the outputs' RMS) and
+    beside SDPA, as a JSON kernel record.  ``layers``: every layer's (K,
+    V) pools; the kernel and SDPA are then timed cold, one launch a layer
+    in turn (``cuda_ms_cold``)."""
+    import torch
+    from repro_torch.kernels import paged_attention
+
+    b, h, dh = q.shape
+    s_max = tables.shape[1] * kp.shape[1]
+    args = (q, kp, vp, tables, lengths)
+    plain = _paged_plain_f32(q, kp, vp)
+    want = plain(tables, lengths)
+    atol = _paged_atol(name, want)
+    # K and V of every resident position read once, q read and the
+    # output written once, the tables and lengths
+    n_pos = int(lengths.clamp(max=s_max).sum())
+    nbytes = ((2 * n_pos * kp.shape[2] * dh + 2 * q.numel()) * q.element_size()
+              + 4 * (tables.numel() + lengths.numel()))
+    # the library yardstick: one SDPA call (enable_gqa) over K/V that
+    # were gathered to [B, KVH, S, dh] beforehand, the gather excluded
+    safe = tables.clamp(min=0).long()
+
+    def gathered(pool):
+        return pool[safe].reshape(b, s_max, pool.shape[2], dh).transpose(1, 2).contiguous()
+
+    def sdpa_on(kg, vg):
+        return lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], kg, vg, enable_gqa=True)[:, :, 0]
+
+    kg, vg = gathered(kp), gathered(vp)
+    check(bool((lengths == s_max).all()), f"{name}: SDPA needs full lengths")
+    sdpa = sdpa_on(kg, vg)
+    cold = None
+    if layers is not None:
+        cold = (
+            [lambda k=k, v=v: paged_attention.paged_decode_attention(
+                q, k, v, tables, lengths) for k, v in layers],
+            [sdpa_on(gathered(k), gathered(v)) for k, v in layers],
+        )
+        log("attn-cold", name=name, layers=len(layers),
+            kv_mb_per_launch=round(nbytes / 1e6, 2), l2_mb=50)
+    lib_err = float((sdpa().float() - want.float()).abs().max())
+    log("agree", name=f"{name} library (SDPA)", max_abs_err=lib_err)
+    torch.testing.assert_close(sdpa().float(), want.float(),
+                               rtol=LIBRARY_ATTN_SLACK * ATTN_RTOL,
+                               atol=LIBRARY_ATTN_SLACK * atol)
+    rec = kernel_record(
+        name, "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+        "src/repro/kernels/paged_attention.py:32",
+        lambda: paged_attention.paged_decode_attention(*args),
+        lambda: plain(tables, lengths),
+        nbytes, 4 * n_pos * h * dh,  # both products, every head
+        launches, atol, rtol=ATTN_RTOL,
+        rate=BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S,
+        library=sdpa, cold=cold,
+    )
+    del kg, vg, want, plain, cold
+    return rec
+
+
 def lm_kernel_records(cfg, params, state, counts, device, t_phase) -> list:
     """``paged_decode_attention`` against its plain version: on the served
     cache (last layer, the step's query shapes), then on one layer's pool
     at ``LM_SHAPES["decode_32k"]``'s 32,768 positions for DECODE_32K_BATCH
-    sequences, full lengths, and a check at mixed lengths including 0.
-    The plain version runs in float32 on the same bf16 values (the kernel
-    computes in float32) and rounds its result to bf16 as the kernel
-    does; outputs agree within ATTN_RTOL of their value plus
-    ATTN_ATOL_RMS of the outputs' RMS."""
+    sequences, full lengths, and a check at mixed lengths including 0
+    (``paged_attn_record``)."""
     import torch
     from repro_torch.configs.base import LM_SHAPES
-    from repro_torch.kernels import paged_attention, ref
-
-    def plain_f32(q, kp, vp):
-        kf, vf = kp.float(), vp.float()
-        return lambda *rest: ref.paged_decode_attention_ref(
-            q.float(), kf, vf, *rest).to(q.dtype)
-
-    def limits(name, want):
-        rms = float(want.float().pow(2).mean().sqrt())
-        log("attn-tol", name=name, output_rms=rms, rtol=ATTN_RTOL,
-            atol=ATTN_ATOL_RMS * rms)
-        return ATTN_ATOL_RMS * rms
+    from repro_torch.kernels import paged_attention
 
     def record(name, q, kp, vp, tables, lengths, layers=None):
-        """``layers``: every layer's (K, V) pools; the kernel and SDPA are
-        then timed cold, one launch a layer in turn (``cuda_ms_cold``)."""
-        b, h, dh = q.shape
-        s_max = tables.shape[1] * kp.shape[1]
-        args = (q, kp, vp, tables, lengths)
-        plain = plain_f32(q, kp, vp)
-        want = plain(tables, lengths)
-        atol = limits(name, want)
-        # K and V of every resident position read once, q read and the
-        # output written once, the tables and lengths
-        n_pos = int(lengths.clamp(max=s_max).sum())
-        nbytes = ((2 * n_pos * kp.shape[2] * dh + 2 * q.numel()) * q.element_size()
-                  + 4 * (tables.numel() + lengths.numel()))
-        # the library yardstick: one SDPA call (enable_gqa) over K/V that
-        # were gathered to [B, KVH, S, dh] beforehand, the gather excluded
-        safe = tables.clamp(min=0).long()
-
-        def gathered(pool):
-            return pool[safe].reshape(b, s_max, pool.shape[2], dh).transpose(1, 2).contiguous()
-
-        def sdpa_on(kg, vg):
-            return lambda: torch.nn.functional.scaled_dot_product_attention(
-                q[:, :, None], kg, vg, enable_gqa=True)[:, :, 0]
-
-        kg, vg = gathered(kp), gathered(vp)
-        check(bool((lengths == s_max).all()), f"{name}: SDPA needs full lengths")
-        sdpa = sdpa_on(kg, vg)
-        cold = None
-        if layers is not None:
-            cold = (
-                [lambda k=k, v=v: paged_attention.paged_decode_attention(
-                    q, k, v, tables, lengths) for k, v in layers],
-                [sdpa_on(gathered(k), gathered(v)) for k, v in layers],
-            )
-            log("attn-cold", name=name, layers=len(layers),
-                kv_mb_per_launch=round(nbytes / 1e6, 2), l2_mb=50)
-        lib_err = float((sdpa().float() - want.float()).abs().max())
-        log("agree", name=f"{name} library (SDPA)", max_abs_err=lib_err)
-        torch.testing.assert_close(sdpa().float(), want.float(),
-                                   rtol=LIBRARY_ATTN_SLACK * ATTN_RTOL,
-                                   atol=LIBRARY_ATTN_SLACK * atol)
-        rec = kernel_record(
-            name, "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
-            "src/repro/kernels/paged_attention.py:32",
-            lambda: paged_attention.paged_decode_attention(*args),
-            lambda: plain(tables, lengths),
-            nbytes, 4 * n_pos * h * dh,  # both products, every head
-            counts["paged_decode_attention"], atol, rtol=ATTN_RTOL,
-            rate=BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S,
-            library=sdpa, cold=cold,
-        )
-        del kg, vg, want, plain, cold
-        return rec
+        return paged_attn_record(name, q, kp, vp, tables, lengths,
+                                 counts["paged_decode_attention"], layers)
 
     gen = torch.Generator(device=device).manual_seed(2)
     b, h, dh = LM_BATCH, cfg.n_heads, cfg.d_head
@@ -2519,9 +2617,9 @@ def lm_kernel_records(cfg, params, state, counts, device, t_phase) -> list:
     cols = torch.arange(nb, device=device)[None] * LM_BLOCK
     tab = torch.where(cols < mixed[:, None], tables, -1).to(torch.int32)
     got = paged_attention.paged_decode_attention(q, kp, vp, tab, mixed)
-    want = plain_f32(q, kp, vp)(tab, mixed)
+    want = _paged_plain_f32(q, kp, vp)(tab, mixed)
     name = "paged_decode_attention[decode_32k, mixed lengths]"
-    atol = limits(name, want)
+    atol = _paged_atol(name, want)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     check(torch.allclose(got.float(), want.float(), rtol=ATTN_RTOL, atol=atol)
@@ -2551,6 +2649,543 @@ def lm_kernel_records(cfg, params, state, counts, device, t_phase) -> list:
         del kp, vp, tables, q, full
     log("lm", seconds=round(time.perf_counter() - t_phase, 1))
     return records
+
+
+def _moe_routing(calls, cfg) -> list:
+    """Each spied ``_rank_within_expert`` call as (experts [T, k], kept
+    [T, k]): the capacity is ``moe_apply``'s for a call of T tokens."""
+    out = []
+    for flat_e, pos in calls:
+        t = flat_e.shape[0] // cfg.top_k
+        cap = int(max(1, (t * cfg.top_k / cfg.n_experts) * cfg.capacity_factor))
+        out.append((flat_e.view(t, cfg.top_k), (pos < cap).view(t, cfg.top_k)))
+    return out
+
+
+def phase_moe(device="cuda") -> list:
+    """The MoE decoders, llama4-maverick (128 experts, top-1, 40 heads over
+    8 KV heads) and then kimi-k2 (384 experts, top-8, dh 112, 64 over 8),
+    at full width, depth cut to MOE_LAYERS, each freed before the next
+    (``moe_arch``).  ``moe._rank_within_expert`` is wrapped for the phase
+    to record each call's expert ids and ranks (the routing), so the drop
+    fraction and the rows whose routing two paths share can be read.
+    Returns the paged kernel's records at the two models' shapes."""
+    from repro_torch.models import moe
+
+    calls = []
+    rank = moe._rank_within_expert
+
+    def spy(expert_ids, n_experts):
+        pos = rank(expert_ids, n_experts)
+        calls.append((expert_ids, pos))
+        return pos
+
+    moe._rank_within_expert = spy
+    try:
+        return [rec for arch in MOE_ARCHS for rec in moe_arch(arch, device, calls)]
+    finally:
+        moe._rank_within_expert = rank
+
+
+def moe_arch(arch, device, calls) -> list:
+    """One MoE decoder: weights drawn on the card from seed 0 (expert by
+    expert), MOE_BATCH sequences of a MOE_PROMPT-token prompt (ids from
+    seed 1) fed one token per ``paged_decode_step``, then MOE_GEN greedy
+    tokens; step times as ``phase_lm`` takes them, the drop fraction,
+    launches (one a layer and step), peak memory.  The contiguous oracle on
+    the same tokens: ``prefill`` of the prompts (its K/V against the paged
+    pools within KV_RTOL; its last logits against the paged path's at the
+    last prompt step, on the rows whose experts are equal and whose pairs
+    were all kept in both calls: the prefill routes all B x MOE_PROMPT
+    tokens at their capacity, a paged step B), then ``decode_step`` over
+    the generated tokens against the paged logits on the rows whose
+    routing matched (MOE_MIN_MATCHED).  Then the kernel's record at the
+    served shapes, timed hot (one layer's pool sits in L2)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import decode_step, init_kv_cache, init_lm, prefill
+    from repro_torch.serving.paged_lm import init_paged_kv, make_paged_decode_fn
+
+    t_phase = time.perf_counter()
+    full = get_arch(arch).config
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    b, steps, k = MOE_BATCH, MOE_PROMPT + MOE_GEN, cfg.top_k
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_lm(0, cfg, device=device)
+    torch.cuda.synchronize()
+    n_params = _n_params(params, cfg)
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    expert_bytes = sum(params["layers"]["moe"][n].numel() * params["layers"]["moe"][n]
+                       .element_size() for n in ("w_gate", "w_up", "w_down"))
+    check(n_params == cfg.n_params, f"{arch}: {n_params} parameters, config says {cfg.n_params}")
+    log("moe-init", arch=cfg.name, layers=cfg.n_layers, layers_cut=f"{full.n_layers} -> "
+        f"{cfg.n_layers}", experts=cfg.n_experts, top_k=k, d_ff_expert=cfg.d_ff_expert,
+        capacity_factor=cfg.capacity_factor, d_model=cfg.d_model, heads=cfg.n_heads,
+        kv_heads=cfg.n_kv_heads, d_head=cfg.d_head, vocab=cfg.vocab, params=n_params,
+        weights_gb=round(weight_bytes / 1e9, 3),
+        experts_gb_a_layer=round(expert_bytes / cfg.n_layers / 1e9, 3),
+        experts_gb_all_layers=round(expert_bytes / cfg.n_layers * full.n_layers / 1e9, 1),
+        seconds=round(time.perf_counter() - t0, 2),
+        resident_before_gb=round(resident / 2**30, 3),
+        peak_allocated_gb=round(torch.cuda.max_memory_allocated() / 2**30, 3))
+
+    per_seq = steps // LM_BLOCK
+    state = init_paged_kv(cfg, b, n_blocks=b * per_seq + 16, block_size=LM_BLOCK,
+                          max_blocks_per_seq=per_seq, device=device)
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (MOE_PROMPT, b)).astype(np.int32)).to(device)
+    step = make_paged_decode_fn(cfg)
+    fed = torch.empty((steps, b), dtype=torch.int32, device=device)
+    logits = torch.empty((steps, b, cfg.vocab), dtype=cfg.dtype, device=device)
+    ms, done = [], {}
+    calls.clear()
+    ops.reset_launch_counts()
+    tok = prompt[0]
+    for s in range(steps):
+        fed[s] = tok
+        if s < MOE_PROMPT:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        lg, state = step(params, tok, state)
+        if s < MOE_PROMPT:
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        else:
+            done[s] = torch.cuda.Event(enable_timing=True)
+            done[s].record()
+        logits[s] = lg
+        tok = prompt[s + 1] if s + 1 < MOE_PROMPT else torch.argmax(lg, -1).to(torch.int32)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log("kernels", path=f"moe:{cfg.name}", **counts)
+    check(counts["paged_decode_attention"] == steps * cfg.n_layers,
+          f"{arch}: paged_decode_attention launched {counts['paged_decode_attention']} "
+          f"times in {steps} steps of {cfg.n_layers} layers")
+    check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits")
+    served = _moe_routing(calls, cfg)
+    check(len(served) == steps * cfg.n_layers, f"{arch}: {len(served)} routed calls")
+    gen_ms = [done[s - 1].elapsed_time(done[s]) for s in range(MOE_PROMPT + 1, steps)]
+    log("moe-serve", arch=cfg.name, batch=b, prompt=MOE_PROMPT, generated=MOE_GEN,
+        capacity_a_step=int(max(1, b * k / cfg.n_experts * cfg.capacity_factor)),
+        drop_frac=float(torch.stack([1 - kept.float().mean() for _, kept in served]).mean()),
+        first_step_ms=round(ms[0], 3),
+        prompt_step_median_ms=round(statistics.median(ms[1:]), 3),
+        decode_step_median_ms=round(statistics.median(gen_ms), 3),
+        decode_step_max_ms=round(max(gen_ms), 3),
+        decode_tokens_per_s=round(b * len(gen_ms) / (sum(gen_ms) / 1e3), 1),
+        weight_read_bound_ms=round(weight_bytes / HBM_BYTES_PER_S * 1e3, 3),
+        peak_allocated_gb=round(torch.cuda.max_memory_allocated() / 2**30, 3))
+
+    # the contiguous oracle on the same tokens
+    cache = init_kv_cache(cfg, b, steps, device=device)
+    calls.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clg, cache = prefill(params, cfg, fed[:MOE_PROMPT].T.contiguous(), cache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    rows = state.block_tables[:, :MOE_PROMPT // LM_BLOCK].long()
+    kv_err = 0.0
+    for name, pool in (("k", state.k_pool), ("v", state.v_pool)):
+        want = pool[0][rows].reshape(b, MOE_PROMPT, cfg.n_kv_heads, cfg.d_head).float()
+        got = cache[name][0, :, :MOE_PROMPT].float()
+        atol = KV_ATOL_RMS * float(want.pow(2).mean().sqrt())
+        kv_err = max(kv_err, float((got - want).abs().max()))
+        check(torch.allclose(got, want, rtol=KV_RTOL, atol=atol),
+              f"{arch}: prefill's {name} cache and the paged pool differ by {kv_err}")
+    (pe, pk), = _moe_routing(calls, cfg)
+    pe, pk = pe.view(b, MOE_PROMPT, k)[:, -1], pk.view(b, MOE_PROMPT, k)[:, -1]
+    se, sk = served[MOE_PROMPT - 1]
+    same = (pe == se).all(1) & pk.all(1) & sk.all(1)
+    pre_err = (clg.float() - logits[MOE_PROMPT - 1].float()).abs().amax(1)
+    check(bool(same.any()), f"{arch}: no prompt row kept its experts in both calls")
+    pre_max = float(pre_err[same].max())
+    check(pre_max <= LM_LOGIT_TOL, f"{arch}: prefill's last logits differ by {pre_max}")
+    errs, cms, n_matched = [], [], 0
+    for s in range(MOE_PROMPT, steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clg, cache = decode_step(params, cfg, fed[s], cache, s)
+        torch.cuda.synchronize()
+        cms.append((time.perf_counter() - t0) * 1e3)
+        (ce, ck), (se, sk) = _moe_routing(calls[-1:], cfg)[0], served[s]
+        same_s = (ce == se).all(1) & (ck == sk).all(1)
+        n_matched += int(same_s.sum())
+        if same_s.any():
+            errs.append((clg.float() - logits[s].float()).abs().amax(1)[same_s].max())
+    n_rows = b * MOE_GEN
+    dec_max = float(torch.stack(errs).max()) if errs else float("nan")
+    log("moe-check", arch=cfg.name, tol=LM_LOGIT_TOL, prefill_ms=round(prefill_ms, 3),
+        prefill_drop_frac=float(1 - _moe_routing(calls[:1], cfg)[0][1].float().mean()),
+        kv_max_abs_err=kv_err, prefill_rows_compared=int(same.sum()), prefill_rows=b,
+        prefill_max_abs_err=pre_max, decode_rows_compared=n_matched, decode_rows=n_rows,
+        decode_max_abs_err=dec_max,
+        contiguous_step_median_ms=round(statistics.median(cms), 3))
+    check(n_matched >= MOE_MIN_MATCHED * n_rows,
+          f"{arch}: routing matched on {n_matched} of {n_rows} decode rows")
+    check(dec_max <= LM_LOGIT_TOL, f"{arch}: decode_step and paged logits differ by {dec_max}")
+    del cache, logits, fed
+    calls.clear()
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    q = torch.randn((b, cfg.n_heads, cfg.d_head), generator=gen, device=device).to(cfg.dtype)
+    log("attn-shape", name=f"paged_decode_attention[{cfg.name}]", heads=cfg.n_heads,
+        kv_heads=cfg.n_kv_heads, group=cfg.n_heads // cfg.n_kv_heads, d_head=cfg.d_head,
+        block=LM_BLOCK, positions=steps, batch=b, timed="hot (one layer's pool)")
+    rec = paged_attn_record(f"paged_decode_attention[{cfg.name}]", q, state.k_pool[0],
+                            state.v_pool[0], state.block_tables, state.seq_lens,
+                            counts["paged_decode_attention"])
+    del params, state, q
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("moe", arch=cfg.name, seconds=round(time.perf_counter() - t_phase, 1))
+    return [rec]
+
+
+def phase_attn_compare(device="cuda") -> None:
+    """``_sdpa_chunked`` (the reference's chunked attention, float32
+    logits) beside ``F.scaled_dot_product_attention(is_causal=True)`` on
+    the same bf16 tensors at [TRAIN_ARCH]'s train shape: [TRAIN_BATCH,
+    4096, 16, 128] queries over 8 KV heads, forward and forward +
+    backward.  Logged only; no gate uses it."""
+    import torch
+    from repro_torch.configs.base import LM_SHAPES, get_arch
+    from repro_torch.models.layers import _sdpa_chunked
+
+    cfg = get_arch(TRAIN_ARCH).config
+    acfg = cfg.attn_config()
+    b, s = TRAIN_BATCH, LM_SHAPES["train_4k"]["seq_len"]
+    h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    gen = torch.Generator(device=device).manual_seed(3)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(cfg.dtype)
+
+    q, k, v = (draw(b, s, n, dh).requires_grad_() for n in (h, kvh, kvh))
+    dout = draw(b, s, h, dh)
+
+    def ours():
+        return _sdpa_chunked(q, k, v, acfg)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+            enable_gqa=True).transpose(1, 2)
+
+    def fwd_bwd(fn):
+        return lambda: torch.autograd.grad(fn(), (q, k, v), dout)
+
+    with torch.no_grad():
+        got, want = ours(), sdpa()
+        diff = float((got.float() - want.float()).abs().max())
+        rms = float(want.float().pow(2).mean().sqrt())
+        fwd = cuda_ms(ours, reps=5), cuda_ms(sdpa, reps=5)
+    del got, want
+    torch.cuda.reset_peak_memory_stats()
+    both = cuda_ms(fwd_bwd(ours), reps=3), cuda_ms(fwd_bwd(sdpa), reps=3)
+    causal_flop = 4 * b * h * s * s * dh / 2  # both products, positions <= the query
+    log("attn-compare", batch=b, seq=s, heads=h, kv_heads=kvh, d_head=dh,
+        attn_chunk=acfg.attn_chunk, dtype="bfloat16",
+        chunked_fwd_ms=round(fwd[0], 3), sdpa_fwd_ms=round(fwd[1], 3),
+        chunked_fwd_bwd_ms=round(both[0], 3), sdpa_fwd_bwd_ms=round(both[1], 3),
+        causal_fwd_tflop=round(causal_flop / 1e12, 3),
+        chunked_fwd_tflop_per_s=round(causal_flop / fwd[0] / 1e9, 1),
+        sdpa_fwd_tflop_per_s=round(causal_flop / fwd[1] / 1e9, 1),
+        max_abs_diff=diff, output_rms=rms,
+        peak_allocated_gb_fwd_bwd=round(torch.cuda.max_memory_allocated() / 2**30, 3))
+    del q, k, v, dout
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train(device="cuda") -> None:
+    """[TRAIN_ARCH] at full width and depth (28 layers, d_model 2048, 16
+    heads over 8 KV heads of 128, vocab 151,936, bf16, remat on) trained
+    through ``launch.train.train_step`` on ``token_stream`` batches (seed
+    0) of train_4k's 4096 tokens, its batch of 256 cut to TRAIN_BATCH:
+    TRAIN_STEPS steps of each optimizer, each from fresh optimizer state,
+    the parameters carried on.  Per optimizer: step ms (CUDA events, after
+    one warm step; AdamW's last step is profiled instead, its device time
+    by kernel and idle share logged by ``log_train_profile``), tokens/s, model FLOPs a step (6·N·tokens, N with the
+    embedding, plus causal attention's forward and backward) against the
+    card's bf16 dense peak, peak memory, the losses and grad norms (all
+    finite; AdamW's last loss below its first).  After Adafactor, the
+    launcher's checkpoint of (params, state) is saved and restored once,
+    bit for bit (``train_checkpoint_probe``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.checkpoint.manager import tree_flatten
+    from repro_torch.configs.base import LM_SHAPES, get_arch
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.launch.train import LR, train_step
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim.optimizers import OptConfig, make_optimizer
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(TRAIN_ARCH).config
+    shape = LM_SHAPES["train_4k"]
+    b, seq = TRAIN_BATCH, shape["seq_len"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_lm(0, cfg, device=device)
+    torch.cuda.synchronize()
+    n_params = _n_params(params, cfg)
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    check(n_params == cfg.n_params, f"train: {n_params} parameters, config says {cfg.n_params}")
+    log("train-init", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, d_head=cfg.d_head, d_ff=cfg.d_ff,
+        vocab=cfg.vocab, dtype="bfloat16", remat=cfg.remat, attn_chunk=cfg.attn_chunk,
+        params=n_params, weights_gb=round(weight_bytes / 1e9, 3), seq=seq, batch=b,
+        batch_cut=f"{shape['global_batch']} -> {b}", seconds=round(time.perf_counter() - t0, 2),
+        resident_before_gb=round(resident / 2**30, 3))
+    tokens = b * seq
+    flop = (6 * n_params * tokens
+            + 6 * b * cfg.n_layers * cfg.n_heads * cfg.d_head * seq * seq)
+    stream = token_stream(b, seq, cfg.vocab, seed=0)
+    first_last = {}
+    for kind, n_steps in TRAIN_STEPS:
+        init, update = make_optimizer(OptConfig(kind=kind, lr=LR))
+        opt = init(params)
+        state_bytes = sum(t.numel() * t.element_size() for t in tree_flatten(opt)[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, marks = [], [], []
+        for i in range(n_steps):
+            batch = next(stream)
+            toks = torch.from_numpy(batch["tokens"]).to(device)
+            labels = torch.from_numpy(batch["labels"]).to(device)
+            profiled = kind == "adamw" and i == n_steps - 1
+            if profiled:
+                torch.cuda.synchronize()
+                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                prof.__enter__()
+                t_prof = time.perf_counter()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            params, opt, loss, norm = train_step(params, opt, toks, labels, cfg=cfg,
+                                                 opt_update=update)
+            end.record()
+            if profiled:
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t_prof) * 1e3
+                prof.__exit__(None, None, None)
+                log_train_profile(prof, wall_ms)
+            else:
+                marks.append((start, end))
+            losses.append(loss)
+            norms.append(norm)
+        torch.cuda.synchronize()
+        step_ms = [a.elapsed_time(z) for a, z in marks[1:]]
+        losses = [float(x) for x in losses]
+        norms = [float(x) for x in norms]
+        med = statistics.median(step_ms)
+        log("train", optimizer=kind, steps=n_steps, lr=LR, step_ms=round(med, 3),
+            step_ms_timed=[round(x, 3) for x in step_ms],
+            tokens_per_s=round(tokens / (med / 1e3), 1),
+            model_tflop_a_step=round(flop / 1e12, 3),
+            model_flops_share_of_bf16_peak=round(flop / (med / 1e3) / BF16_FLOP_PER_S, 4),
+            optimizer_state_gb=round(state_bytes / 1e9, 3),
+            peak_allocated_gb=round(torch.cuda.max_memory_allocated() / 2**30, 3),
+            losses=losses, grad_norms=norms)
+        check(all(math.isfinite(x) for x in losses + norms),
+              f"train: non-finite loss or grad norm under {kind}: {losses} {norms}")
+        first_last[kind] = (losses[0], losses[-1])
+        if kind == "adafactor":
+            train_checkpoint_probe(params, opt, device)
+        del opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(first_last["adamw"][1] < first_last["adamw"][0],
+          f"train: AdamW's loss did not fall: {first_last['adamw']}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("train", seconds=round(time.perf_counter() - t_phase, 1))
+
+
+def log_train_profile(prof, wall_ms: float) -> None:
+    """One training step under torch.profiler: device busy ms, idle share
+    and the top kernels by device time."""
+    by_name = _device_ms_by_kernel(prof)
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    log("train-profile", optimizer="adamw", wall_ms=round(wall_ms, 3),
+        device_ms=round(busy, 3),
+        device_idle_share=round(1 - busy / wall_ms, 4) if busy else "not measured",
+        kernels=len(by_name), top_ms=[(n, round(t, 3)) for n, t in top])
+
+
+def train_checkpoint_probe(params, opt, device) -> None:
+    """The launcher's checkpoint of the full model under Adafactor: save
+    (device to host, the npz with bf16 leaves as ``<V2``) and restore onto
+    the card, timed; every leaf back bit for bit."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager, tree_flatten
+
+    leaves, _ = tree_flatten((params, opt))
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    root = tempfile.mkdtemp(prefix="train_ckpt_")
+    try:
+        free = shutil.disk_usage(root).free
+        check(free >= 1.5 * nbytes, f"train: {free} bytes free for a {nbytes}-byte checkpoint")
+        mgr = CheckpointManager(root)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(1, (params, opt))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got, _ = mgr.restore(like=(params, opt), device=device)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        back = tree_flatten(got)[0]
+        check(all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(back, leaves)),
+              "train: the restored checkpoint differs from the saved tree")
+        log("train-ckpt", optimizer="adafactor", leaves=len(leaves),
+            bf16_leaves=sum(t.dtype == torch.bfloat16 for t in leaves),
+            tensor_bytes=nbytes, disk_bytes=_dir_bytes(root), save_s=round(save_s, 3),
+            restore_s=round(restore_s, 3), free_bytes=free)
+        del got, back
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_train_parity(device="cuda") -> None:
+    """PARITY_STEPS AdamW steps of [TRAIN_ARCH]'s float32 SMOKE config on
+    the card and on the CPU, from the same weights (``init_lm`` on the
+    CPU, carried to each device by ``lm_params_from_host``) and the same
+    ``token_stream`` batches: losses within PARITY_LOSS_TOL, parameters
+    within PARITY_PARAM_TOL.  The CPU side is what the CPU tests hold
+    against the JAX package."""
+    import torch
+    from repro_torch.checkpoint.manager import tree_flatten
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.launch.train import LR, train_step
+    from repro_torch.models.transformer import init_lm, lm_params_from_host
+    from repro_torch.optim.optimizers import OptConfig, make_optimizer
+
+    cfg = get_arch(TRAIN_ARCH).smoke_config
+
+    def host(tree):
+        return {k: host(v) if isinstance(v, dict) else v.numpy() for k, v in tree.items()}
+
+    weights = host(init_lm(0, cfg, device="cpu"))
+    runs = {}
+    for dev in (device, "cpu"):
+        params = lm_params_from_host(weights, cfg, device=dev)
+        init, update = make_optimizer(OptConfig(kind="adamw", lr=LR))
+        opt = init(params)
+        stream = token_stream(PARITY_BATCH, PARITY_SEQ, cfg.vocab, seed=0)
+        losses, norms = [], []
+        for _ in range(PARITY_STEPS):
+            batch = next(stream)
+            params, opt, loss, norm = train_step(
+                params, opt, torch.from_numpy(batch["tokens"]).to(dev),
+                torch.from_numpy(batch["labels"]).to(dev), cfg=cfg, opt_update=update)
+            losses.append(float(loss))
+            norms.append(float(norm))
+        runs[dev] = losses, norms, [t.cpu() for t in tree_flatten(params)[0]]
+    (lc, nc, pc), (lh, nh, ph) = runs[device], runs["cpu"]
+    loss_err = max(abs(a - b) for a, b in zip(lc, lh))
+    param_err = max(float((a - b).abs().max()) for a, b in zip(pc, ph))
+    log("train-parity", arch=cfg.name, config="smoke", dtype="float32", steps=PARITY_STEPS,
+        batch=PARITY_BATCH, seq=PARITY_SEQ, losses_card=lc, losses_cpu=lh,
+        grad_norms_card=nc, grad_norms_cpu=nh, loss_max_abs_err=loss_err,
+        param_max_abs_err=param_err, loss_tol=PARITY_LOSS_TOL, param_tol=PARITY_PARAM_TOL)
+    check(loss_err <= PARITY_LOSS_TOL, f"train-parity: losses differ by {loss_err}")
+    check(param_err <= PARITY_PARAM_TOL, f"train-parity: parameters differ by {param_err}")
+
+
+def phase_train_restart() -> None:
+    """The launcher end to end, each run a process of its own:
+    ``python -m repro_torch.launch.train --arch [TRAIN_ARCH] --optimizer
+    adafactor --batch 1 --seq 4096 --ckpt-every 2`` with ``--steps 4``,
+    then ``--steps 6`` in the same checkpoint directory (it must restore
+    step 4), against ``--steps 6`` in a fresh one.  The printed losses at
+    steps 2, 4, 6 within RESTART_LOSS_TOL; the two step-6 checkpoints
+    equal bit for bit but for RESTART_BITS_SHARE of their elements.  The
+    directories live in one temporary directory, removed at the end."""
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    root = tempfile.mkdtemp(prefix="train_restart_")
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH,
+            "--optimizer", "adafactor", "--batch", "1", "--seq", str(RESTART_SEQ),
+            "--ckpt-every", str(RESTART_EVERY)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    loss_line = re.compile(r"\[train\] step (\d+) loss ([0-9.]+) \(ckpt\)")
+
+    def run(tag, directory, steps):
+        t0 = time.perf_counter()
+        done = subprocess.run(base + ["--steps", str(steps), "--ckpt-dir", directory],
+                              env=env, cwd=ROOT, capture_output=True, text=True, timeout=400)
+        secs = time.perf_counter() - t0
+        for line in done.stdout.splitlines():
+            log("train-restart", run=tag, out=line.strip())
+        check(done.returncode == 0,
+              f"train-restart {tag}: exit {done.returncode}: {done.stderr[-3000:]}")
+        return done.stdout, {int(m[1]): float(m[2]) for m in loss_line.finditer(done.stdout)}, secs
+
+    def step_dir(directory, step):
+        return os.path.join(directory, f"step_{step:010d}")
+
+    try:
+        free = shutil.disk_usage(root).free
+        log("train-restart", step="disk", dir=root, free_bytes=free, need=RESTART_DISK_BYTES)
+        check(free >= RESTART_DISK_BYTES, f"train-restart: {free} bytes free")
+        broken, whole = os.path.join(root, "broken"), os.path.join(root, "whole")
+        gc.collect()
+        torch.cuda.empty_cache()  # the cached memory, for the child processes
+        _, first, s1 = run("first", broken, RESTART_STEPS[0])
+        ckpt_bytes = _dir_bytes(step_dir(broken, RESTART_STEPS[0]))
+        out, second, s2 = run("restart", broken, RESTART_STEPS[1])
+        check(f"[train] restored step {RESTART_STEPS[0]} from {broken}" in out,
+              "train-restart: the second run did not restore step 4")
+        for step in range(RESTART_EVERY, RESTART_STEPS[0] + 1, RESTART_EVERY):
+            shutil.rmtree(step_dir(broken, step), ignore_errors=True)  # disk
+        _, straight, s3 = run("uninterrupted", whole, RESTART_STEPS[1])
+        restarted = {**first, **second}
+        check(sorted(restarted) == sorted(straight) == [2, 4, 6],
+              f"train-restart: losses at {sorted(restarted)} and {sorted(straight)}")
+        loss_err = max(abs(restarted[s] - straight[s]) for s in straight)
+        with np.load(os.path.join(step_dir(broken, 6), "shard_0.npz")) as a, \
+                np.load(os.path.join(step_dir(whole, 6), "shard_0.npz")) as z:
+            check(sorted(a.files) == sorted(z.files), "train-restart: leaf sets differ")
+            n_diff = n_all = 0
+            for name in a.files:
+                x, y = a[name], z[name]
+                check(x.dtype == y.dtype and x.shape == y.shape,
+                      f"train-restart: leaf {name} differs in dtype or shape")
+                bits = x.dtype.itemsize
+                x, y = (t.view(f"u{bits}") if bits in (1, 2, 4, 8) else t for t in (x, y))
+                n_diff += int(np.count_nonzero(x != y))
+                n_all += x.size
+        log("train-restart", losses_restarted=restarted, losses_uninterrupted=straight,
+            loss_max_abs_err=loss_err, loss_tol=RESTART_LOSS_TOL,
+            elements_not_bit_equal=n_diff, elements=n_all,
+            share_not_bit_equal=n_diff / n_all, share_max=RESTART_BITS_SHARE,
+            ckpt_bytes=ckpt_bytes, run_seconds=[round(s1, 1), round(s2, 1), round(s3, 1)])
+        check(loss_err <= RESTART_LOSS_TOL, f"train-restart: losses differ by {loss_err}")
+        check(n_diff <= RESTART_BITS_SHARE * n_all,
+              f"train-restart: {n_diff} of {n_all} checkpoint elements differ")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -2650,6 +3285,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     records += phase_lm("cuda")
+    # the MoE decoders, one layer each; then the trainer's side
+    records += phase_moe("cuda")
+    phase_attn_compare("cuda")
+    phase_train("cuda")
+    phase_train_parity("cuda")
+    phase_train_restart()
     log("done", seconds=round(time.perf_counter() - t_start, 1),
         peak_allocated_gb=round(torch.cuda.max_memory_allocated() / 2**30, 3))
     print(json.dumps({"kernels": records}), flush=True)

@@ -17,6 +17,12 @@ restores in the other:
   The manifest's ``treedef`` is jax's string form of the structure, e.g.
   ``PyTreeDef({'pq': [], 'state': [*, *, *]})``, so manifests of the two
   packages differ only in ``time``.
+* A bf16 leaf is written as the reference writes a bf16 ``jax.Array``
+  (ml_dtypes' npy descr ``<V2``, the raw bits), and read back as bf16
+  where the ``like`` leaf is a bf16 tensor, from ``<V2`` or ``uint16``
+  bits; a shape or dtype that does not fit raises
+  :class:`CheckpointCorruption` (the reference cannot restore its own bf16
+  leaves: ``jnp`` refuses ``<V2``).
 * ``restore`` rebuilds the tree from a ``like`` template with tensors on
   ``device``.  Leaves are loaded by their explicit ``arr_<i>`` key (never
   ``data.files`` iteration order), and a leaf-count mismatch raises
@@ -32,6 +38,7 @@ import os
 import shutil
 import threading
 import time
+import zipfile
 from typing import Any, Iterator, Optional
 
 import numpy as np
@@ -94,10 +101,41 @@ def tree_unflatten(like: Any, leaves: list) -> Any:
     return _unflatten(like, iter(leaves))
 
 
+#: a bf16 leaf on the host: its bits as 2-byte voids, the dtype numpy
+#: gives the npy descr that ml_dtypes' bfloat16 writes (BF16_DESCR)
+BF16_HOST = np.dtype("V2")
+BF16_DESCR = "<V2"
+
+
 def _to_host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:  # numpy has no bf16: keep the bits
+            return x.view(torch.int16).numpy().view(BF16_HOST)
+        return x.numpy()
     return np.asarray(x)
+
+
+def _savez(path: str, host: list) -> None:
+    """``np.savez(path, *host)``, member for member, except that a bf16
+    leaf (``BF16_HOST``) gets the ``BF16_DESCR`` header, as the
+    reference's bf16 leaves do; numpy would write ``|V2``."""
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for i, val in enumerate(host):
+            val = np.asanyarray(val)
+            with zf.open(f"arr_{i}.npy", "w", force_zip64=True) as fid:
+                if val.dtype != BF16_HOST:
+                    np.lib.format.write_array(fid, val, allow_pickle=True)
+                    continue
+                np.lib.format.write_array_header_1_0(fid, {
+                    "descr": BF16_DESCR, "fortran_order": False,
+                    "shape": val.shape})
+                bits = np.ascontiguousarray(val).view(np.uint16)
+                for chunk in np.nditer(
+                        bits, flags=["external_loop", "buffered", "zerosize_ok"],
+                        buffersize=8 << 20, order="C"):
+                    fid.write(chunk.tobytes("C"))
 
 
 class CheckpointManager:
@@ -156,7 +194,7 @@ class CheckpointManager:
         if os.path.exists(tmp):  # leftover of a crashed save of this step
             shutil.rmtree(tmp)
         os.makedirs(tmp)
-        np.savez(os.path.join(tmp, "shard_0.npz"), *host)
+        _savez(os.path.join(tmp, "shard_0.npz"), host)
         manifest = {
             MANIFEST_STEP_KEY: step,
             MANIFEST_TREEDEF_KEY: treedef,
@@ -264,8 +302,32 @@ class CheckpointManager:
                 f"{d}: checkpoint has {len(host)} leaves but the `like` "
                 f"template has {len(leaves)} — schema mismatch"
             )
-        dev = [_to_tensor(h).to(device) for h in host]
+        dev = [_leaf(h, t, f"{d}: leaf {i}").to(device)
+               for i, (h, t) in enumerate(zip(host, leaves))]
         return tree_unflatten(like, dev), manifest
+
+
+def _leaf(h: np.ndarray, like, where: str) -> torch.Tensor:
+    """A host leaf as a CPU tensor.  Where the template's leaf is a bf16
+    tensor, the leaf must be bf16 bits (``<V2``, or ``uint16``) of the
+    template's shape; a bf16 leaf must meet a bf16 template.  Anything
+    else raises rather than cast or reshape in silence."""
+    bf16_like = isinstance(like, torch.Tensor) and like.dtype == torch.bfloat16
+    if bf16_like:
+        if h.dtype not in (BF16_HOST, np.dtype(np.uint16)):
+            raise CheckpointCorruption(
+                f"{where}: the template's leaf is bfloat16, the checkpoint's "
+                f"{h.dtype}")
+        if tuple(h.shape) != tuple(like.shape):
+            raise CheckpointCorruption(
+                f"{where}: shape {tuple(h.shape)}, the template's "
+                f"{tuple(like.shape)}")
+        return _to_tensor(h.view(np.int16)).view(torch.bfloat16)
+    if h.dtype == BF16_HOST:
+        raise CheckpointCorruption(
+            f"{where}: a bfloat16 leaf, but the template's leaf is "
+            f"{getattr(like, 'dtype', type(like).__name__)}")
+    return _to_tensor(h)
 
 
 def _to_tensor(h: np.ndarray) -> torch.Tensor:

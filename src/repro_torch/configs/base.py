@@ -3,9 +3,10 @@ dashed public id to an ``ArchSpec`` bundling the full-size config, the
 reduced smoke config and the per-arch input-shape set.
 
 A copy of the reference's ``repro.configs.base`` (same names, same
-``LM_SHAPES``) that registers only the configs the port has ported: the
-dense decoder llama3-8b.  The other archs of the reference (the MoE LMs,
-qwen, recsys, GNN) come with ROADMAP queue 1 item 11.
+``LM_SHAPES``) that registers the configs the port has ported: the five LM
+archs (llama3-8b, qwen3-1.7b, qwen1.5-110b, and the MoE decoders
+kimi-k2-1t-a32b and llama4-maverick-400b-a17b).  The reference's recsys
+and GNN archs come with later slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -54,4 +55,10 @@ def list_archs() -> list[str]:
 def _ensure_loaded():
     if _REGISTRY:
         return
-    from repro_torch.configs import llama3_8b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        kimi_k2_1t_a32b,
+        llama3_8b,
+        llama4_maverick_400b_a17b,
+        qwen1_5_110b,
+        qwen3_1_7b,
+    )

@@ -1,11 +1,14 @@
-"""Deterministic synthetic vector corpora, shaped like the public datasets
-they stand in for (SIFT1M 128-d, the paper's DSSM 64-d corpus).
+"""Deterministic synthetic data, shaped like the public datasets it stands
+in for: vector corpora (SIFT1M 128-d, the paper's DSSM 64-d corpus) and the
+LM trainer's token batches.
 
 Same generators as the JAX package's ``repro.data.synthetic``: numpy only,
 so one seed gives the same bytes in both packages.
 """
 
 from __future__ import annotations
+
+from typing import Iterator
 
 import numpy as np
 
@@ -26,3 +29,19 @@ def dssm_like(n: int, dim: int = 64, seed: int = 1, n_topics: int = 256):
     assign = rng.integers(0, n_topics, n)
     x = topics[assign] + 0.3 * rng.normal(size=(n, dim)).astype(np.float32)
     return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+def token_stream(
+    batch: int, seq: int, vocab: int, seed: int = 0, start_step: int = 0
+) -> Iterator[dict]:
+    """Zipf-distributed token batches; cursor = step (restart-replayable)."""
+    step = start_step
+    while True:
+        rng = np.random.default_rng((seed, step))
+        toks = rng.zipf(1.3, size=(batch, seq + 1)) % vocab
+        yield {
+            "tokens": toks[:, :-1].astype(np.int32),
+            "labels": toks[:, 1:].astype(np.int32),
+            "step": step,
+        }
+        step += 1

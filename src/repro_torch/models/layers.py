@@ -1,13 +1,12 @@
-"""Transformer building blocks: RMSNorm, RoPE, GQA projections and decode
-attention, SwiGLU (the reference's ``repro.models.layers``).
+"""Transformer building blocks: RMSNorm, RoPE, GQA attention (full-sequence
+and single-token decode), SwiGLU (the reference's ``repro.models.layers``).
 
 Parameters are plain dicts of tensors under the reference's names and
 layouts (``wq`` is [d_model, H*dh], activations [B, S, H, dh]), so the
 parity tests hand both packages the same arrays.  The reference's ``shard``
 callbacks are dropped: the port runs on one card.  Compute dtype is the
 params' dtype (bf16 in the production configs); norms, RoPE and softmax
-work in float32.  Full-sequence attention (``_sdpa_chunked``,
-``attention``) comes with the training slice.
+work in float32.
 """
 
 from __future__ import annotations
@@ -59,6 +58,7 @@ class AttnConfig:
     qk_norm: bool = False
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
+    attn_chunk: int = 512  # query-chunked causal attention: the chunk size
 
 
 def _normal(gen: torch.Generator, shape, std: float, dtype, device) -> torch.Tensor:
@@ -107,6 +107,54 @@ def _qkv(p: dict, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  cfg: AttnConfig, causal: bool = True) -> torch.Tensor:
+    """Query-chunked attention, q [B, S, H, dh], k and v [B, S, KV, dh] ->
+    [B, S, H, dh]: the live logits of a chunk are [B, KV, G, Cq, S].
+
+    The reference's computation, chunk by chunk: logits in float32 (the
+    operands are widened, as its ``preferred_element_type`` asks), scaled
+    by dh**-0.5, positions past the query masked with -1e30, a float32
+    softmax; the weights are rounded to v's dtype for the second product
+    and the output to q's.  The queries are padded to a multiple of the
+    chunk and cropped after.  Plain torch ops: the reference computes
+    this in ``jnp`` too, outside any kernel."""
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    scale = dh**-0.5
+    cq = min(cfg.attn_chunk, s)
+    s_pad = -(-s // cq) * cq  # pad queries up to a chunk multiple
+    if s_pad != s:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, s_pad - s))
+    qg = q.reshape(b, s_pad, kvh, g, dh)
+    kf = k.to(torch.float32)
+    cols = torch.arange(s, device=q.device)
+    chunks = []
+    for i in range(s_pad // cq):
+        q_c = qg[:, i * cq:(i + 1) * cq].to(torch.float32)
+        logits = torch.einsum("bqkgd,bskd->bkgqs", q_c, kf) * scale
+        if causal:
+            qpos = i * cq + torch.arange(cq, device=q.device)
+            mask = qpos[:, None] >= cols[None, :]
+            logits = torch.where(mask, logits, -1e30)
+        w = torch.softmax(logits, dim=-1)
+        o = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype), v)
+        chunks.append(o.to(q.dtype))
+    out = torch.cat(chunks, dim=1)  # [b, s_pad, kvh, g, dh]
+    return out.reshape(b, s_pad, h, dh)[:, :s]
+
+
+def attention(p: dict, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
+              causal: bool = True) -> torch.Tensor:
+    """Full-sequence (training / prefill) attention: x [B, S, D] at
+    ``positions`` [B, S] -> [B, S, D]."""
+    q, k, v = _qkv(p, cfg, x, positions)
+    out = _sdpa_chunked(q, k, v, cfg, causal=causal)
+    b, s = x.shape[:2]
+    return out.reshape(b, s, cfg.n_heads * cfg.d_head) @ p["wo"]
 
 
 def attention_decode(

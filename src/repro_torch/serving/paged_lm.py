@@ -31,8 +31,8 @@ import torch
 
 from repro_torch.core.ivf import _resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models.layers import _qkv, mlp_swiglu, rmsnorm
-from repro_torch.models.transformer import LMConfig, _dense_only, layer
+from repro_torch.models.layers import _qkv, rmsnorm
+from repro_torch.models.transformer import LMConfig, _ffn, layer_views
 
 NULL = -1
 
@@ -98,7 +98,6 @@ def paged_decode_step(
     """One decode step over the block-pool cache: allocate, write each
     layer's new K/V in place, attend through the tables.  Returns
     (logits [B, V], state'); state' shares the pools with ``state``."""
-    _dense_only(cfg)
     b = token.shape[0]
     acfg = cfg.attn_config()
     p, t = state.k_pool.shape[1:3]
@@ -122,8 +121,7 @@ def paged_decode_step(
     new_lens = lens + 1
 
     x = params["embed"][token.long()][:, None].to(cfg.dtype)  # [B, 1, D]
-    for i in range(cfg.n_layers):
-        lp = layer(params, i)
+    for i, lp in enumerate(layer_views(params)):
         kp, vp = state.k_pool[i], state.v_pool[i]  # [P, T, KV, dh] views
         xn = rmsnorm(x, lp["attn_norm"])
         q, k_new, v_new = _qkv(lp["attn"], acfg, xn, lens[:, None])
@@ -134,7 +132,8 @@ def paged_decode_step(
         )  # [B, H, dh]
         o = o.reshape(b, 1, cfg.n_heads * cfg.d_head) @ lp["attn"]["wo"]
         h = x + o
-        x = h + mlp_swiglu(lp["mlp"], rmsnorm(h, lp["mlp_norm"]))
+        y, _ = _ffn(lp, cfg, rmsnorm(h, lp["mlp_norm"]))
+        x = h + y
     x = rmsnorm(x, params["final_norm"])
     logits = (x @ params["lm_head"])[:, 0]
     return logits, dataclasses.replace(state, seq_lens=new_lens, n_pos=state.n_pos + 1)
