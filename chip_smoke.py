@@ -68,6 +68,23 @@ and on the CPU from the same weights, and ``[train-restart]`` runs the
 launcher (``python -m repro_torch.launch.train``) for 4 steps, restarts
 it to 6 and holds it to one uninterrupted 6-step run.
 
+Then the recsys models (DLRM, DCN-v2, Wide&Deep, DIEN; random weights
+from seed 0, ``click_stream`` batches).  ``[recsys-parity]`` runs each
+SMOKE config on the card and on the CPU from the same weights (logits,
+loss, 3 AdamW steps).  ``[recsys]`` serves each at full width through
+``apply_rec`` at serve_p99 (B 512) and serve_bulk (B 262,144), DLRM's
+Criteo-1TB table cut to 16M rows a field (43.0 GB): ms a batch, samples/s,
+peak memory, a profiled call of each, the bulk batch's first rows held
+to the p99 batch's logits; then retrieval_cand by brute force
+(``score_candidates``, 1 user against 1M candidates, held to a float64
+recompute).  ``[recsys-train]`` trains each at train_batch (B 65,536,
+DLRM at 2M rows a field) with AdamW for 6 steps on one batch (the loss
+must fall), one more step profiled.  ``[recsys-retrieval]`` runs
+``examples/recsys_retrieval.py`` on the port: 400,000 items in a
+512-list block pool with blocks of 64 on ``union_fused`` with the exact
+re-rank, recall@100 held to the JAX example's, 256 online inserts found
+at once, and the route's three kernels recorded at its shapes.
+
 After ``[runtime]``, the ``[durability]`` phase serves the churned float32
 SIFT1M index through a fused-mode ``ServingRuntime`` with a mutation WAL
 (an fsync per record) and snapshots in a fresh temporary directory: the
@@ -223,6 +240,44 @@ PARITY_LOSS_TOL, PARITY_PARAM_TOL = 1e-4, 1e-4
 RESTART_STEPS, RESTART_EVERY, RESTART_SEQ = (4, 6), 2, 4096
 RESTART_LOSS_TOL, RESTART_BITS_SHARE = 5e-3, 1e-3
 RESTART_DISK_BYTES = 22e9  # two runs' checkpoints of 4.06 GB, kept 3 deep
+# the recsys phases: the four archs at full width, RECSYS_SHAPES' batches
+RECSYS_ARCHS = ("dlrm-mlperf", "dcn-v2", "wide-deep", "dien")
+# DLRM's Criteo-1TB table (187,767,399 rows x 128 x 4 B = 96.1 GB) does
+# not fit the card: each field's rows are capped, the width kept.  Serving
+# holds 84,063,992 rows (43.0 GB); AdamW holds the dense table gradient,
+# two moments and their out-of-place updates (~9 copies), so training
+# holds 13,110,446 rows (6.71 GB)
+DLRM_SERVE_ROWS, DLRM_TRAIN_ROWS = 16_000_000, 2_000_000
+RECSYS_TRAIN_STEPS = 6
+# [recsys-parity]: each SMOKE config on the card and on the CPU from the
+# same weights: logits and loss within 1e-5, as the CPU tests hold the
+# port to the JAX package (O(1) logits, float32 sums in another order);
+# parameters after 3 AdamW steps within 5e-5 (Adam divides out a
+# gradient's scale, so a 1e-7 relative difference in a small gradient
+# moves its update as much; the LM's parity above took 1.35e-5 at lr 1e-3)
+RECSYS_PARITY_BATCH, RECSYS_PARITY_STEPS = 256, 3
+RECSYS_PARITY_TOL, RECSYS_PARITY_PARAM_TOL = 1e-5, 5e-5
+# serve_bulk's first serve_p99 rows against serve_p99's logits on the same
+# rows: the same sums, through products of other shapes
+RECSYS_ROWS_TOL = 1e-4
+# retrieval_cand by brute force: unit candidates against a query of about
+# unit norm (the mean of the user's field embeddings), a float32 dot of
+# <= 128 terms, within 128 x 2^-24 of its float64 recompute at worst;
+# top-k ids equal up to scores this close
+RETRIEVAL_K, RETRIEVAL_SCORE_TOL = 100, 1e-5
+# the IVF route at examples/recsys_retrieval.py's sizes and settings but
+# one: the example's chains of 32 blocks of 64 hold 2,048 rows a list, and
+# its k-means (either package's) gives lists of up to 50 blocks, so its
+# build drops 4,281 of the 400,000 items.  64 (IVFIndexConfig's default)
+# holds every list
+RETRIEVAL_ITEMS, RETRIEVAL_DIM, RETRIEVAL_USERS, RETRIEVAL_NEW = 400_000, 64, 8, 256
+RETRIEVAL_MAX_CHAIN = 64
+# recall@100 of the example's route (the JAX package's build_ivf and
+# block_table search) at these settings, run on a CPU under jax 0.9.0
+# (0.99125 at chains of 32 and 64 alike; the example prints 0.991); the
+# port's union_fused with the exact re-rank must come within the slack
+# (k-means may differ between the packages)
+JAX_EXAMPLE_RECALL_AT_100, RETRIEVAL_RECALL_SLACK = 0.99125, 0.02
 
 
 def log(phase: str, **fields) -> None:
@@ -460,13 +515,15 @@ def scan_counts(state, uc) -> dict:
     }
 
 
-def kernel_records(indexes, queries, vmax, counts):
+def kernel_records(indexes, queries, vmax, counts, tag=None):
     """Every kernel against its plain version at the main path's shapes, on
     the candidate list of the real index; returns the JSON records of the
     kernels the main path launches.  ``rerank_topk[int8]`` is held to its
     plain version too, but no path launches it (int8 search re-ranks
     reconstructed float32 rows, as the reference does), so its record is
-    logged and left out of the JSON line."""
+    logged and left out of the JSON line.  ``tag`` names another path's
+    records (``coarse_topk[tag]``, ``ivf_block_topk[float32,tag]``); their
+    launches are still read from ``counts`` under the wrappers' keys."""
     import torch
     from repro_torch.core import search as S
     from repro_torch.kernels import ivf_scan, launch, ref
@@ -481,7 +538,9 @@ def kernel_records(indexes, queries, vmax, counts):
 
     def record(name, source, replaces, kern, plain, nbytes, flops,
                rate=F32_FLOP_PER_S):
-        return kernel_record(name, source, replaces, kern, plain, nbytes,
+        label = name if tag is None else (
+            f"{name[:-1]},{tag}]" if name.endswith("]") else f"{name}[{tag}]")
+        return kernel_record(label, source, replaces, kern, plain, nbytes,
                              flops, counts.get(name, 0), atol, rate)
 
     idx = indexes["float32"]
@@ -2912,7 +2971,7 @@ def phase_train(device="cuda") -> None:
     TRAIN_STEPS steps of each optimizer, each from fresh optimizer state,
     the parameters carried on.  Per optimizer: step ms (CUDA events, after
     one warm step; AdamW's last step is profiled instead, its device time
-    by kernel and idle share logged by ``log_train_profile``), tokens/s, model FLOPs a step (6·N·tokens, N with the
+    by kernel and idle share logged by ``log_device_profile``), tokens/s, model FLOPs a step (6·N·tokens, N with the
     embedding, plus causal attention's forward and backward) against the
     card's bf16 dense peak, peak memory, the losses and grad norms (all
     finite; AdamW's last loss below its first).  After Adafactor, the
@@ -2977,7 +3036,7 @@ def phase_train(device="cuda") -> None:
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t_prof) * 1e3
                 prof.__exit__(None, None, None)
-                log_train_profile(prof, wall_ms)
+                log_device_profile("train-profile", prof, wall_ms, optimizer="adamw")
             else:
                 marks.append((start, end))
             losses.append(loss)
@@ -3011,13 +3070,13 @@ def phase_train(device="cuda") -> None:
     log("train", seconds=round(time.perf_counter() - t_phase, 1))
 
 
-def log_train_profile(prof, wall_ms: float) -> None:
-    """One training step under torch.profiler: device busy ms, idle share
-    and the top kernels by device time."""
+def log_device_profile(phase: str, prof, wall_ms: float, **tags) -> None:
+    """One call (a training step, a served batch) under torch.profiler:
+    device busy ms, idle share and the top kernels by device time."""
     by_name = _device_ms_by_kernel(prof)
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    log("train-profile", optimizer="adamw", wall_ms=round(wall_ms, 3),
+    log(phase, **tags, wall_ms=round(wall_ms, 3),
         device_ms=round(busy, 3),
         device_idle_share=round(1 - busy / wall_ms, 4) if busy else "not measured",
         kernels=len(by_name), top_ms=[(n, round(t, 3)) for n, t in top])
@@ -3188,6 +3247,349 @@ def phase_train_restart() -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------------- recsys ----
+
+
+def rec_config(arch: str, cap: int):
+    """The arch's full config; DLRM's with each field's rows capped at
+    ``cap`` (the width kept).  Returns (config, the cut as logged)."""
+    from repro_torch.configs.base import get_arch
+
+    cfg = get_arch(arch).config
+    if arch != "dlrm-mlperf":
+        return cfg, "none"
+    cut = dataclasses.replace(cfg, vocab_sizes=tuple(min(v, cap) for v in cfg.vocab_sizes))
+    return cut, (f"{cfg.spec.total_rows}->{cut.spec.total_rows}"
+                 f"(cap_{cap}_a_field,padded_{cut.spec.padded_rows})")
+
+
+def rec_batch(cfg, b: int, device, seed: int = 0) -> dict:
+    """One ``click_stream`` batch (with DIEN's history) on ``device``."""
+    import torch
+    from repro_torch.data.synthetic import click_stream
+
+    nb = next(click_stream(b, cfg.n_dense, cfg.vocab_sizes, seed=seed, seq_len=cfg.seq_len))
+    nb.pop("step")
+    return {k: torch.from_numpy(v).to(device) for k, v in nb.items()}
+
+
+def served_ms(fn, reps: int = TIMING_REPS) -> float:
+    """Median ms of ``fn()`` served one call at a time, after one warm-up:
+    CUDA events around the call, the card waited for after it, so the
+    host's issue time counts where the card waits for it (a served batch
+    waits for it too)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return statistics.median(ms)
+
+
+def profile_call(phase: str, fn, **tags) -> None:
+    """One call of ``fn`` under torch.profiler (CPU and CUDA activity),
+    the card synchronised before and after it: ``log_device_profile``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    log_device_profile(phase, prof, wall_ms, **tags)
+
+
+def phase_recsys_parity(device="cuda") -> None:
+    """Each arch's SMOKE config on the card and on the CPU from the same
+    weights (``init_rec`` on the CPU, carried to each device by
+    ``rec_params_from_host``) on one ``click_stream`` batch: logits and
+    loss within RECSYS_PARITY_TOL, then RECSYS_PARITY_STEPS AdamW steps
+    (``launch.train.rec_train_step``) and every parameter within
+    RECSYS_PARITY_PARAM_TOL.  The CPU side is what the CPU tests hold to
+    the JAX package."""
+    import torch
+    from repro_torch.checkpoint.manager import tree_flatten, tree_unflatten
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.train import rec_train_step
+    from repro_torch.models.recsys.models import (
+        apply_rec, init_rec, rec_loss, rec_params_from_host)
+    from repro_torch.optim.optimizers import OptConfig, make_optimizer
+
+    log("recsys-parity", card=smi())
+    for arch in RECSYS_ARCHS:
+        cfg = get_arch(arch).smoke_config
+        host = init_rec(0, cfg, device="cpu")
+        weights = tree_unflatten(host, [t.numpy() for t in tree_flatten(host)[0]])
+        runs = {}
+        for dev in (device, "cpu"):
+            params = rec_params_from_host(weights, cfg, device=dev)
+            batch = rec_batch(cfg, RECSYS_PARITY_BATCH, dev)
+            with torch.no_grad():
+                logits = apply_rec(params, cfg, batch).cpu()
+                loss = float(rec_loss(params, cfg, batch)[0])
+            init, update = make_optimizer(OptConfig(kind="adamw"))
+            opt = init(params)
+            losses = []
+            for _ in range(RECSYS_PARITY_STEPS):
+                params, opt, step_loss = rec_train_step(params, opt, batch, cfg=cfg,
+                                                        opt_update=update)
+                losses.append(float(step_loss))
+            runs[dev] = logits, loss, losses, [t.cpu() for t in tree_flatten(params)[0]]
+        (lc, xc, sc, pc), (lh, xh, sh, ph) = runs[device], runs["cpu"]
+        logit_err = float((lc - lh).abs().max())
+        loss_err = max(abs(xc - xh), *(abs(a - b) for a, b in zip(sc, sh)))
+        param_err = max(float((a - b).abs().max()) for a, b in zip(pc, ph))
+        log("recsys-parity", arch=arch, config="smoke", batch=RECSYS_PARITY_BATCH,
+            steps=RECSYS_PARITY_STEPS, logit_max_abs_err=logit_err,
+            loss_max_abs_err=loss_err, param_max_abs_err=param_err,
+            losses_card=sc, losses_cpu=sh, tol=RECSYS_PARITY_TOL,
+            param_tol=RECSYS_PARITY_PARAM_TOL)
+        check(logit_err <= RECSYS_PARITY_TOL, f"recsys-parity {arch}: logits differ by {logit_err}")
+        check(loss_err <= RECSYS_PARITY_TOL, f"recsys-parity {arch}: losses differ by {loss_err}")
+        check(param_err <= RECSYS_PARITY_PARAM_TOL,
+              f"recsys-parity {arch}: parameters differ by {param_err}")
+
+
+def phase_recsys(device="cuda") -> None:
+    """Each arch at full width (DLRM's rows cut to DLRM_SERVE_ROWS a
+    field) served through ``apply_rec`` under ``torch.inference_mode()``
+    at serve_p99 (B 512) and serve_bulk (B 262,144) on one ``click_stream``
+    batch (seed 0; serve_p99 is its first 512 rows): ms a batch
+    (``served_ms``), samples/s, parameters, table bytes, peak memory;
+    finite logits, serve_bulk's first rows within RECSYS_ROWS_TOL of
+    serve_p99's.  Then ``retrieval_brute`` on the same weights."""
+    import torch
+    from repro_torch.checkpoint.manager import tree_flatten
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.models.recsys.models import apply_rec, init_rec
+
+    log("recsys", card=smi())
+    t_phase = time.perf_counter()
+    p99_b = RECSYS_SHAPES["serve_p99"]["batch"]
+    bulk_b = RECSYS_SHAPES["serve_bulk"]["batch"]
+    for arch in RECSYS_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg, rows_cut = rec_config(arch, DLRM_SERVE_ROWS)
+        t0 = time.perf_counter()
+        params = init_rec(0, cfg, device=device)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in tree_flatten(params)[0])
+        table_bytes = sum(params[n]["table"].numel() * 4 for n in ("embed", "wide")
+                          if n in params)
+        t0 = time.perf_counter()
+        bulk = rec_batch(cfg, bulk_b, device)
+        data_s = time.perf_counter() - t0
+        shapes = {"serve_p99": {k: v[:p99_b] for k, v in bulk.items()}, "serve_bulk": bulk}
+        logits = {}
+        with torch.inference_mode():
+            for shape, batch in shapes.items():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                logits[shape] = apply_rec(params, cfg, batch)
+                ms = served_ms(lambda: apply_rec(params, cfg, batch))
+                b = batch["sparse"].shape[0]
+                out = logits[shape]
+                check(out.shape == (b,) and bool(torch.isfinite(out).all()),
+                      f"recsys {arch} {shape}: bad logits")
+                log("recsys", arch=arch, shape=shape, batch=b, ms=round(ms, 4),
+                    samples_per_s=round(b / (ms / 1e3), 1),
+                    params=n_params,
+                    table_bytes=table_bytes, table_gb=round(table_bytes / 1e9, 3),
+                    peak_allocated_gb=round(torch.cuda.max_memory_allocated() / 2**30, 3),
+                    logit_abs_max=round(float(out.abs().max()), 4),
+                    rows_cut=rows_cut, batch_cut="none", init_s=round(init_s, 2),
+                    data_s=round(data_s, 2))
+                profile_call("recsys-profile", lambda: apply_rec(params, cfg, batch),
+                             arch=arch, shape=shape)
+        err = float((logits["serve_bulk"][:p99_b] - logits["serve_p99"]).abs().max())
+        log("recsys", arch=arch, bulk_rows_vs_p99_max_abs_err=err, tol=RECSYS_ROWS_TOL)
+        check(err <= RECSYS_ROWS_TOL, f"recsys {arch}: serve_bulk rows differ by {err}")
+        del shapes, bulk, logits
+        retrieval_brute(arch, cfg, params, device)
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("recsys", seconds=round(time.perf_counter() - t_phase, 1))
+
+
+def retrieval_brute(arch, cfg, params, device) -> None:
+    """retrieval_cand by brute force: one user (``click_stream`` seed 0)
+    against 1,000,000 unit-norm ``dssm_like`` candidates (seed 2) of the
+    arch's embed_dim through ``score_candidates``, k RETRIEVAL_K: ms
+    (``served_ms``), and the ids held to a float64 recompute on the card,
+    equal up to ties (each rank's float64 score within
+    RETRIEVAL_SCORE_TOL of the float64 top-k's)."""
+    import torch
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.data.synthetic import dssm_like
+    from repro_torch.models.recsys.embedding import lookup
+    from repro_torch.models.recsys.models import score_candidates
+
+    shape = RECSYS_SHAPES["retrieval_cand"]
+    t0 = time.perf_counter()
+    cand = torch.from_numpy(dssm_like(shape["n_candidates"], cfg.embed_dim, seed=2)).to(device)
+    data_s = time.perf_counter() - t0
+    user = rec_batch(cfg, shape["batch"], device)
+    with torch.inference_mode():
+        scores, ids = score_candidates(params, cfg, user, cand, k=RETRIEVAL_K)
+        ms = served_ms(lambda: score_candidates(params, cfg, user, cand, k=RETRIEVAL_K))
+        query = lookup(params["embed"], cfg.spec, user["sparse"]).double().mean(dim=1)
+        s64 = query @ cand.double().T
+        want, want_ids = torch.topk(s64, RETRIEVAL_K)
+        err = float((s64.gather(1, ids.long()) - want).abs().max())
+        score_err = float((scores.double() - want).abs().max())
+    log("recsys-retrieval", route="brute", arch=arch, users=shape["batch"],
+        candidates=shape["n_candidates"], dim=cfg.embed_dim, k=RETRIEVAL_K, ms=round(ms, 4),
+        candidate_bytes=cand.numel() * 4, ids_equal=bool(torch.equal(ids.long(), want_ids)),
+        rank_score_max_abs_err=err, score_max_abs_err=score_err, tol=RETRIEVAL_SCORE_TOL,
+        data_s=round(data_s, 2))
+    check(err <= RETRIEVAL_SCORE_TOL and score_err <= RETRIEVAL_SCORE_TOL,
+          f"recsys-retrieval {arch}: top-{RETRIEVAL_K} off its float64 recompute by "
+          f"{err} / {score_err}")
+
+
+def phase_recsys_train(device="cuda") -> None:
+    """Each arch at full width (DLRM's rows cut to DLRM_TRAIN_ROWS a
+    field) trained at train_batch (B 65,536) through
+    ``launch.train.rec_train_step`` with AdamW at ``OptConfig(kind=
+    "adamw")``'s defaults, as the reference's rec_train cell builds it:
+    RECSYS_TRAIN_STEPS steps on one fixed ``click_stream`` batch (seed 0);
+    step ms (CUDA events, median of all but the first), samples/s, losses
+    (finite, the last under the first), optimizer state and peak memory."""
+    import torch
+    from repro_torch.checkpoint.manager import tree_flatten
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.launch.train import rec_train_step
+    from repro_torch.models.recsys.models import init_rec
+    from repro_torch.optim.optimizers import OptConfig, make_optimizer
+
+    log("recsys-train", card=smi())
+    t_phase = time.perf_counter()
+    b = RECSYS_SHAPES["train_batch"]["batch"]
+    for arch in RECSYS_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg, rows_cut = rec_config(arch, DLRM_TRAIN_ROWS)
+        params = init_rec(0, cfg, device=device)
+        batch = rec_batch(cfg, b, device)
+        init, update = make_optimizer(OptConfig(kind="adamw"))
+        opt = init(params)
+        state_bytes = sum(t.numel() * t.element_size() for t in tree_flatten(opt)[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, marks = [], []
+        for _ in range(RECSYS_TRAIN_STEPS):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            params, opt, loss = rec_train_step(params, opt, batch, cfg=cfg, opt_update=update)
+            end.record()
+            marks.append((start, end))
+            losses.append(loss)
+        torch.cuda.synchronize()
+        step_ms = [a.elapsed_time(z) for a, z in marks[1:]]
+        losses = [float(x) for x in losses]
+        med = statistics.median(step_ms)
+        peak = torch.cuda.max_memory_allocated()
+
+        def step():  # one more step, profiled; its result is dropped
+            rec_train_step(params, opt, batch, cfg=cfg, opt_update=update)
+
+        profile_call("recsys-profile", step, arch=arch, shape="train_batch")
+        log("recsys-train", arch=arch, batch=b, steps=RECSYS_TRAIN_STEPS, optimizer="adamw",
+            step_ms=round(med, 3), step_ms_timed=[round(x, 3) for x in step_ms],
+            samples_per_s=round(b / (med / 1e3), 1), losses=losses,
+            params=sum(t.numel() for t in tree_flatten(params)[0]),
+            optimizer_state_gb=round(state_bytes / 1e9, 3),
+            peak_allocated_gb=round(peak / 2**30, 3), rows_cut=rows_cut, batch_cut="none")
+        check(all(math.isfinite(x) for x in losses), f"recsys-train {arch}: losses {losses}")
+        check(losses[-1] < losses[0], f"recsys-train {arch}: the loss did not fall: {losses}")
+        del params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("recsys-train", seconds=round(time.perf_counter() - t_phase, 1))
+
+
+def phase_recsys_retrieval(device="cuda") -> list:
+    """examples/recsys_retrieval.py on the port: RETRIEVAL_ITEMS
+    ``dssm_like`` items of dim RETRIEVAL_DIM (seed 0) in ``build_ivf``
+    (512 lists, blocks of 64, chains of RETRIEVAL_MAX_CHAIN, capacity 4N,
+    nprobe 8, k 100) on ``union_fused`` with the exact re-rank, RETRIEVAL_USERS users
+    (seed 1): no insert dropped, recall@100 against ``exact_search``
+    within RETRIEVAL_RECALL_SLACK of the JAX example's, ms a batch beside
+    brute force; then RETRIEVAL_NEW new items (seed 2, after a warm-up
+    insert from seed 3), their insert ms, and the first 8 their own
+    nearest neighbours at nprobe 16, k 1.  The route's launches are
+    counted from 0 over this run; ``coarse_topk``, ``ivf_block_topk
+    [float32]`` and ``rerank_topk[float32]`` must each launch, and their
+    records at these shapes (``kernel_records`` tagged ``recsys``) join
+    the JSON line."""
+    import numpy as np
+    import torch
+    from repro_torch.core import build_ivf, exact_search
+    from repro_torch.core.metrics import recall_at_k
+    from repro_torch.data.synthetic import dssm_like
+    from repro_torch.kernels import ops
+
+    log("recsys-retrieval", card=smi())
+    n, dim = RETRIEVAL_ITEMS, RETRIEVAL_DIM
+    items = dssm_like(n, dim, seed=0)
+    users = dssm_like(RETRIEVAL_USERS, dim, seed=1)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = build_ivf(items, n_clusters=512, block_size=64,
+                      max_chain=RETRIEVAL_MAX_CHAIN, capacity_vectors=4 * n, nprobe=8, k=RETRIEVAL_K,
+                      search_path="union_fused", rerank=True, device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    stats = index.stats()
+    check(stats["num_dropped"] == 0, f"recsys-retrieval: {stats['num_dropped']} inserts dropped")
+    items_d = torch.as_tensor(items, device=device)
+    users_d = torch.as_tensor(users, device=device)
+    _, ids = index.search(users)
+    _, truth = exact_search(items_d, users_d, RETRIEVAL_K)
+    recall = recall_at_k(ids, truth.cpu().numpy(), RETRIEVAL_K)
+    ivf_ms = served_ms(lambda: index.search(users))
+    brute_ms = served_ms(lambda: exact_search(items_d, users_d, RETRIEVAL_K))
+    index.add(dssm_like(RETRIEVAL_NEW, dim, seed=3))  # warm the insert step
+    fresh = dssm_like(RETRIEVAL_NEW, dim, seed=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new_ids = index.add(fresh)
+    torch.cuda.synchronize()
+    insert_ms = (time.perf_counter() - t0) * 1e3
+    _, got = index.search(fresh[:8], nprobe=16, k=1)
+    found = bool((np.asarray(got)[:, 0] == np.asarray(new_ids)[:8]).all())
+    counts = ops.launch_counts()
+    log("recsys-retrieval", route="ivf", items=n, dim=dim, users=RETRIEVAL_USERS,
+        lists=512, block=64, max_chain=RETRIEVAL_MAX_CHAIN, nprobe=8, k=RETRIEVAL_K,
+        build_s=round(build_s, 2), longest_list_blocks=int(index.state.cluster_nblocks.max()),
+        blocks_in_use=stats["blocks_in_use"], num_dropped=stats["num_dropped"],
+        recall_at_100=recall, jax_example_recall_at_100=JAX_EXAMPLE_RECALL_AT_100,
+        ivf_ms=round(ivf_ms, 4), brute_ms=round(brute_ms, 4),
+        insert_ms=round(insert_ms, 3), new_items=RETRIEVAL_NEW,
+        new_items_retrievable=found)
+    log("kernels", path="recsys-retrieval", **counts)
+    check(abs(recall - JAX_EXAMPLE_RECALL_AT_100) <= RETRIEVAL_RECALL_SLACK,
+          f"recsys-retrieval: recall@100 {recall}, the JAX example's {JAX_EXAMPLE_RECALL_AT_100}")
+    check(found, "recsys-retrieval: new items not their own nearest neighbours")
+    for name in ("coarse_topk", "ivf_block_topk[float32]", "rerank_topk[float32]"):
+        check(counts.get(name, 0) > 0, f"kernel {name} never launched on the retrieval route")
+    vmax = float((items_d * items_d).sum(1).max())
+    return kernel_records({"float32": index}, users, vmax, counts, tag="recsys")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: the port's sources (src/repro_torch) are not "
@@ -3291,6 +3693,13 @@ def main() -> int:
     phase_train("cuda")
     phase_train_parity("cuda")
     phase_train_restart()
+    # the recsys models, serving, training and candidate retrieval
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_recsys_parity("cuda")
+    phase_recsys("cuda")
+    phase_recsys_train("cuda")
+    records += phase_recsys_retrieval("cuda")
     log("done", seconds=round(time.perf_counter() - t_start, 1),
         peak_allocated_gb=round(torch.cuda.max_memory_allocated() / 2**30, 3))
     print(json.dumps({"kernels": records}), flush=True)

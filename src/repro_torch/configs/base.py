@@ -3,10 +3,11 @@ dashed public id to an ``ArchSpec`` bundling the full-size config, the
 reduced smoke config and the per-arch input-shape set.
 
 A copy of the reference's ``repro.configs.base`` (same names, same
-``LM_SHAPES``) that registers the configs the port has ported: the five LM
-archs (llama3-8b, qwen3-1.7b, qwen1.5-110b, and the MoE decoders
-kimi-k2-1t-a32b and llama4-maverick-400b-a17b).  The reference's recsys
-and GNN archs come with later slices (ROADMAP queue 1).
+``LM_SHAPES`` and ``RECSYS_SHAPES``) that registers the configs the port
+has ported: the five LM archs (llama3-8b, qwen3-1.7b, qwen1.5-110b, and
+the MoE decoders kimi-k2-1t-a32b and llama4-maverick-400b-a17b) and the
+four recsys archs (dlrm-mlperf, dcn-v2, wide-deep, dien).  The reference's
+GNN arch (equiformer-v2) comes with a later slice (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -18,6 +19,13 @@ LM_SHAPES = {
     "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
     "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
     "decode_32k": dict(kind="decode", seq_len=32768, global_batch=128),
+}
+
+RECSYS_SHAPES = {
+    "train_batch": dict(kind="rec_train", batch=65536),
+    "serve_p99": dict(kind="rec_serve", batch=512),
+    "serve_bulk": dict(kind="rec_serve", batch=262_144),
+    "retrieval_cand": dict(kind="rec_retrieval", batch=1, n_candidates=1_000_000),
 }
 
 
@@ -56,9 +64,13 @@ def _ensure_loaded():
     if _REGISTRY:
         return
     from repro_torch.configs import (  # noqa: F401
+        dcn_v2,
+        dien,
+        dlrm_mlperf,
         kimi_k2_1t_a32b,
         llama3_8b,
         llama4_maverick_400b_a17b,
         qwen1_5_110b,
         qwen3_1_7b,
+        wide_deep,
     )

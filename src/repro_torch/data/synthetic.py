@@ -1,6 +1,6 @@
 """Deterministic synthetic data, shaped like the public datasets it stands
-in for: vector corpora (SIFT1M 128-d, the paper's DSSM 64-d corpus) and the
-LM trainer's token batches.
+in for: vector corpora (SIFT1M 128-d, the paper's DSSM 64-d corpus), the
+LM trainer's token batches and the recsys models' click logs.
 
 Same generators as the JAX package's ``repro.data.synthetic``: numpy only,
 so one seed gives the same bytes in both packages.
@@ -44,4 +44,33 @@ def token_stream(
             "labels": toks[:, 1:].astype(np.int32),
             "step": step,
         }
+        step += 1
+
+
+def click_stream(
+    batch: int,
+    n_dense: int,
+    vocab_sizes,
+    seed: int = 0,
+    seq_len: int = 0,
+    start_step: int = 0,
+) -> Iterator[dict]:
+    """Criteo-like click logs: lognormal dense + Zipf categorical ids."""
+    vocab_sizes = np.asarray(vocab_sizes)
+    step = start_step
+    while True:
+        rng = np.random.default_rng((seed, step))
+        dense = rng.lognormal(0, 1, size=(batch, n_dense)).astype(np.float32)
+        sparse = (rng.zipf(1.2, size=(batch, len(vocab_sizes))) - 1) % vocab_sizes
+        out = {
+            "dense": np.log1p(dense),
+            "sparse": sparse.astype(np.int32),
+            "label": (rng.random(batch) < 0.25).astype(np.float32),
+            "step": step,
+        }
+        if seq_len:
+            out["history"] = (
+                (rng.zipf(1.2, size=(batch, seq_len)) - 1) % vocab_sizes[0]
+            ).astype(np.int32)
+        yield out
         step += 1

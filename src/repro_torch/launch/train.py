@@ -13,7 +13,9 @@ Fault tolerance, as the reference's:
 
 Runs on the card unless ``--device`` names another.  The step is a plain
 function (``train_step``): ``lm_loss``, its gradient by autograd, the
-optional bf16 compression, the optimizer's update.
+optional bf16 compression, the optimizer's update.  ``rec_train_step`` is
+the recsys models' step (the reference builds it in ``launch/steps.py``):
+``rec_loss``, its gradient, the update.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from repro_torch.checkpoint.manager import (
 from repro_torch.configs.base import get_arch
 from repro_torch.core.ivf import _resolve_device
 from repro_torch.data.synthetic import token_stream
+from repro_torch.models.recsys.models import rec_loss
 from repro_torch.models.transformer import init_lm, lm_loss
 from repro_torch.optim.optimizers import (
     OptConfig,
@@ -64,6 +67,18 @@ def train_step(params, opt, tokens, labels, *, cfg, opt_update, compress=False):
         grads = compress_grads_bf16(grads)
     params, opt = opt_update(grads, opt, params)
     return params, opt, loss.detach(), norm
+
+
+def rec_train_step(params, opt, batch, *, cfg, opt_update):
+    """One recsys step on ``batch`` (a dict of tensors, as ``apply_rec``
+    takes it).  Returns (params, opt, loss): new parameter and optimizer
+    trees and the loss (a 0-d float32 tensor, left on the device)."""
+    leaves, _ = tree_flatten(params)
+    live = [p.detach().requires_grad_() for p in leaves]
+    loss, _ = rec_loss(tree_unflatten(params, live), cfg, batch)
+    grads = tree_unflatten(params, list(torch.autograd.grad(loss, live)))
+    params, opt = opt_update(grads, opt, params)
+    return params, opt, loss.detach()
 
 
 def main(argv=None) -> None:

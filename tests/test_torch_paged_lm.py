@@ -267,7 +267,7 @@ def test_llama3_8b_config_matches_reference():
             **{f.name: ja[f.name] for f in dataclasses.fields(tl.AttnConfig)})
     assert spec.config.n_params == 8_030_261_248
     with pytest.raises(KeyError, match="unknown arch"):
-        get_arch("dlrm-mlperf")  # the recsys archs are not ported yet
+        get_arch("equiformer-v2")  # the GNN arch is not ported yet
 
 
 def test_moe_and_missing_gpu_raise(monkeypatch):
