@@ -85,6 +85,28 @@ must fall), one more step profiled.  ``[recsys-retrieval]`` runs
 re-rank, recall@100 held to the JAX example's, 256 online inserts found
 at once, and the route's three kernels recorded at its shapes.
 
+Then the GNN family (EquiformerV2 with eSCN graph attention; its path
+reaches no Pallas kernel, so it adds no kernel record).  ``[gnn-parity]``
+runs the SMOKE config on the card and on the CPU from the same weights on
+a 500-node ``random_graph`` in 63 edge chunks, a ``molecule_batch`` with
+graph readout and a ``sample_block`` block: outputs and losses within
+1e-4 (of the largest |out|), 3 AdamW steps through ``gnn_train_step``,
+parameters within 5e-5.  ``[gnn]`` runs the full config at full width
+and depth (12 layers, 128 channels, l_max 6, m_max 2, 8 heads; random
+weights from seed 0): full_graph_sm (2,708 nodes, d_feat 1,433) and
+molecule (128 molecules of 30 nodes, graph readout), each forward x20
+and 6 AdamW steps with the loss falling (molecule at lr 1e-5; the
+default lr's losses are logged beside it), step ms, nodes/s, model FLOPs
+against the float32 peak, peak memory and one profiled step; on
+full_graph_sm the logits under a global rotation and a translation of
+the positions, within 1e-4 of the largest |out|.  minibatch_lg builds
+the 232,965-node, ~114.6M-edge host graph and its CSR, samples blocks of
+1,024 seeds with fanouts (15, 10) padded to 170,000/170,000 (host ms a
+block), runs the forward at that block in one edge chunk, and trains on
+the most seeds whose reckoned memory (autograd's saved bytes a node,
+counted on the card) fits 80% of it, labels on the seeds only.
+ogb_products is logged as waiting for the launch tooling's dry run.
+
 After ``[runtime]``, the ``[durability]`` phase serves the churned float32
 SIFT1M index through a fused-mode ``ServingRuntime`` with a mutation WAL
 (an fsync per record) and snapshots in a fresh temporary directory: the
@@ -278,6 +300,34 @@ RETRIEVAL_MAX_CHAIN = 64
 # port's union_fused with the exact re-rank must come within the slack
 # (k-means may differ between the packages)
 JAX_EXAMPLE_RECALL_AT_100, RETRIEVAL_RECALL_SLACK = 0.99125, 0.02
+# the GNN phases: EquiformerV2 (12 layers, 128 channels, l_max 6, m_max 2,
+# 8 heads, 8 radial bases, edge_chunk 262,144), float32, TF32 off
+GNN_ARCH = "equiformer-v2"
+GNN_STEPS, GNN_FORWARD_REPS, GNN_LG_FORWARD_REPS = 6, 20, 3
+# [gnn-parity]: the SMOKE config on the card and on the CPU from the same
+# weights: outputs within 1e-4 of the largest |out| and losses within 1e-4
+# relative (what the CPU tests hold the port to the JAX package to: float32
+# sums in another order, here also index_add_'s atomic order on the card);
+# parameters after 3 AdamW steps within 5e-5, as [recsys-parity]
+GNN_PARITY_STEPS, GNN_PARITY_TOL, GNN_PARITY_PARAM_TOL = 3, 1e-4, 5e-5
+# equivariance at full width on full_graph_sm: a global rotation of pos
+# (tests/test_gnn.py's Euler angles) and a translation move the logits by
+# at most 1e-4 of the largest |out| (the reference at FULL on a 24-node
+# graph on a CPU moves by 6.1e-6 against outputs of 7.4)
+GNN_ROTATION_ZYX, GNN_SHIFT, GNN_EQUIV_TOL = (0.7, -1.1, 0.4), 13.7, 1e-4
+# minibatch_lg's training block: autograd keeps about 7 node tensors
+# [N, 49, 128] a layer outside the aggregation (``gnn_saved_bytes`` counts
+# them on the card: ~2.1 MB a node at 12 layers), so the 170,000-node
+# block would need ~358 GB.  The seeds, and with them the padded sizes, are
+# cut in proportion to the most seeds (a multiple of 32) whose reckoned
+# bytes fit GNN_TRAIN_MEMORY_SHARE of the card (the reckoning comes within
+# a few percent of the measured peak); width and depth stay
+GNN_TRAIN_MEMORY_SHARE = 0.8
+# molecule's graph readout sums 30 nodes' outputs: at OptConfig's default
+# lr 3e-4, AdamW's sign-like first steps move every weight of the 12
+# layers together and the loss rises (117 -> 3,337 at step 2); it trains
+# at GNN_MOLECULE_LR, the default's run is logged beside it
+GNN_MOLECULE_LR = 1e-5
 
 
 def log(phase: str, **fields) -> None:
@@ -3590,6 +3640,405 @@ def phase_recsys_retrieval(device="cuda") -> list:
     return kernel_records({"float32": index}, users, vmax, counts, tag="recsys")
 
 
+# ---------------------------------------------------------------- GNN -----
+
+
+def gnn_batch(g: dict, device) -> dict:
+    """A graph dict (``random_graph``, ``molecule_batch``, ``gnn_block``)
+    as tensors on ``device``; ``n_graphs`` stays a Python int."""
+    import numpy as np
+    import torch
+
+    return {k: int(v) if k == "n_graphs" else
+            torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in g.items()}
+
+
+def gnn_block(g: dict, graph, seeds, fanouts, max_nodes, max_edges, seed: int):
+    """``sample_block`` on the host graph: the block's graph dict (node rows
+    gathered on the host, labels on the seeds only) and the host ms."""
+    import numpy as np
+    from repro_torch.models.gnn.sampler import sample_block
+
+    t0 = time.perf_counter()
+    blk = sample_block(graph, seeds, fanouts, np.random.default_rng(seed), max_nodes,
+                       max_edges)
+    ms = (time.perf_counter() - t0) * 1e3
+    ids = blk["node_ids"]
+    out = {"node_feat": g["node_feat"][ids], "pos": g["pos"][ids],
+           "edge_src": blk["edge_src"], "edge_dst": blk["edge_dst"],
+           "label": np.where(blk["seed_mask"], g["label"][ids], -1).astype(np.int32)}
+    return out, blk, ms
+
+
+def gnn_flops(cfg, n_nodes: int, n_edges: int) -> tuple[float, float]:
+    """Model FLOPs of one forward and of one training step as the port
+    computes them.  An edge and a layer: the SO(2) products (m = 0 one
+    [2nC -> nC] product, each m >= 1 four), the rotations of the compact
+    rows (|m| <= m_max) into the edge frame for both ends and back, the
+    Wigner blocks, the radial map and the attention logits.  A node and a
+    layer: the FFN's gate and its per-l mix; plus the embedding and the
+    head.  A step runs the edges three times more (the recompute and the
+    backward's two products) and the nodes twice more."""
+    c = cfg.channels
+    edge = 0.0
+    for mi, (pos, _) in enumerate(cfg.m_groups()):
+        n = len(pos)
+        edge += (1 if mi == 0 else 4) * 2 * (2 * n * c) * (n * c)
+    for l in range(cfg.l_max + 1):
+        d, k = 2 * l + 1, 2 * min(l, cfg.m_max) + 1
+        edge += 3 * 2 * k * d * c + 4 * 2 * d * d * d + 2 * d * d * d
+    edge += 2 * cfg.n_radial * c + 2 * c * c + 2 * c * cfg.n_heads
+    node = 2 * c * cfg.l_max * c + 2 * cfg.s_full * c * c
+    fixed = n_nodes * (2 * cfg.d_feat_in * c + 2 * c * c + 2 * c * cfg.n_out)
+    fwd = cfg.n_layers * (n_edges * edge + n_nodes * node) + fixed
+    step = cfg.n_layers * (4 * n_edges * edge + 3 * n_nodes * node) + 3 * fixed
+    return fwd, step
+
+
+def gnn_saved_bytes(cfg, device, n: int = 512) -> float:
+    """Bytes that autograd keeps for the backward a node and a layer at
+    ``cfg``'s width: the storages saved by one loss on an ``n``-node,
+    ``n``-edge random graph at 2 layers (``saved_tensors_hooks``), the
+    parameters' own storages left out, over n x 2."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.manager import tree_flatten
+    from repro_torch.data.synthetic import random_graph
+    from repro_torch.models.gnn.equiformer_v2 import equiformer_loss, init_equiformer
+
+    cfg = dataclasses.replace(cfg, n_layers=2)
+    params = init_equiformer(0, cfg, device=device)
+    for t in tree_flatten(params)[0]:
+        t.requires_grad_()
+    own = {t.untyped_storage().data_ptr() for t in tree_flatten(params)[0]}
+    batch = gnn_batch(random_graph(n, 1, cfg.d_feat_in, seed=1), device)
+    seen = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        if st.data_ptr() not in own:
+            seen[st.data_ptr()] = st.nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss, _ = equiformer_loss(params, cfg, batch)
+    del loss
+    return float(np.sum(list(seen.values()))) / (n * cfg.n_layers)
+
+
+def phase_gnn_parity(device="cuda") -> None:
+    """[GNN_ARCH]'s SMOKE config (2 layers, 16 channels, l_max 2, m_max 1,
+    edge_chunk 64) on the card and on the CPU from the same weights
+    (``init_equiformer`` on the CPU, carried to each device by
+    ``equiformer_params_from_host``) on three graphs: ``random_graph(500,
+    8)`` with node readout (~4,000 edges: 63 chunks and a ragged last
+    one), a ``molecule_batch`` with graph readout and a ``sample_block``
+    subgraph with labels on its seeds: outputs within GNN_PARITY_TOL of
+    the largest |out|, the loss within GNN_PARITY_TOL relative, then
+    GNN_PARITY_STEPS AdamW steps (``launch.train.gnn_train_step``) and
+    every parameter within GNN_PARITY_PARAM_TOL.  The CPU side is what the
+    CPU tests hold to the JAX package."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.manager import tree_flatten, tree_unflatten
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.synthetic import molecule_batch, random_graph
+    from repro_torch.launch.train import gnn_train_step
+    from repro_torch.models.gnn.equiformer_v2 import (
+        equiformer_forward, equiformer_loss, equiformer_params_from_host, init_equiformer)
+    from repro_torch.models.gnn.sampler import CSRGraph
+    from repro_torch.optim.optimizers import OptConfig, make_optimizer
+
+    log("gnn-parity", card=smi())
+    t_phase = time.perf_counter()
+    smoke = get_arch(GNN_ARCH).smoke_config
+    g = random_graph(500, 8, smoke.d_feat_in, seed=0, n_classes=smoke.n_out)
+    graph = CSRGraph.from_edges(g["edge_src"].astype(np.int64),
+                                g["edge_dst"].astype(np.int64), 500)
+    block, blk, _ = gnn_block(g, graph, np.arange(16), (4, 3), 256, 512, seed=0)
+    mol_cfg = dataclasses.replace(smoke, readout="graph", n_out=1, d_feat_in=16)
+    cases = (("random_graph", smoke, g), ("molecule", mol_cfg, molecule_batch(8, 30, 64, seed=0)),
+             ("sample_block", smoke, block))
+    for name, cfg, graph_np in cases:
+        host = init_equiformer(0, cfg, device="cpu")
+        weights = tree_unflatten(host, [t.numpy() for t in tree_flatten(host)[0]])
+        runs = {}
+        for dev in (device, "cpu"):
+            params = equiformer_params_from_host(weights, cfg, device=dev)
+            batch = gnn_batch(graph_np, dev)
+            with torch.no_grad():
+                out = equiformer_forward(
+                    params, cfg, batch["node_feat"], batch["pos"], batch["edge_src"],
+                    batch["edge_dst"], graph_ids=batch.get("graph_ids"),
+                    n_graphs=batch.get("n_graphs", 1)).cpu()
+                loss = float(equiformer_loss(params, cfg, batch)[0])
+            init, update = make_optimizer(OptConfig(kind="adamw"))
+            opt = init(params)
+            losses = []
+            for _ in range(GNN_PARITY_STEPS):
+                params, opt, step_loss = gnn_train_step(params, opt, batch, cfg=cfg,
+                                                        opt_update=update)
+                losses.append(float(step_loss))
+            runs[dev] = out, loss, losses, [t.cpu() for t in tree_flatten(params)[0]]
+        (oc, xc, sc, pc), (oh, xh, sh, ph) = runs[device], runs["cpu"]
+        scale = float(oh.abs().max())
+        out_err = float((oc - oh).abs().max())
+        loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip([xc] + sc, [xh] + sh))
+        param_err = max(float((a - b).abs().max()) for a, b in zip(pc, ph))
+        n_edges = len(graph_np["edge_src"])
+        log("gnn-parity", graph=name, config="smoke", readout=cfg.readout,
+            nodes=len(graph_np["node_feat"]), edges=n_edges,
+            chunks=-(-n_edges // cfg.edge_chunk), steps=GNN_PARITY_STEPS,
+            out_abs_max=scale, out_max_abs_err=out_err, loss_max_rel_err=loss_rel,
+            param_max_abs_err=param_err, losses_card=sc, losses_cpu=sh,
+            tol=GNN_PARITY_TOL, param_tol=GNN_PARITY_PARAM_TOL,
+            **({"block_nodes": blk["n_nodes"], "block_edges": blk["n_edges"]}
+               if name == "sample_block" else {}))
+        check(out_err <= GNN_PARITY_TOL * scale, f"gnn-parity {name}: outputs differ by {out_err}")
+        check(loss_rel <= GNN_PARITY_TOL, f"gnn-parity {name}: losses differ by {loss_rel}")
+        check(param_err <= GNN_PARITY_PARAM_TOL,
+              f"gnn-parity {name}: parameters differ by {param_err}")
+    log("gnn-parity", seconds=round(time.perf_counter() - t_phase, 1))
+
+
+def gnn_cell(shape: str, cfg, batch: dict, device, *, forward_reps: int, steps: int,
+             train_batch: dict | None = None, lr: float | None = None, **tags) -> dict:
+    """One GNN shape at full width and depth (random weights, seed 0):
+    forward ms under ``torch.no_grad`` (``served_ms``, ``forward_reps``
+    calls), nodes/s, model FLOPs against the float32 peak and peak memory;
+    then ``steps`` AdamW steps (``OptConfig``'s defaults, ``lr`` if given)
+    through ``gnn_train_step`` on ``train_batch`` (``batch`` unless
+    given): step ms (CUDA events, median
+    of all but the first), nodes/s, FLOP share, optimizer state and peak
+    memory, the losses (finite); one more step profiled
+    (``log_device_profile``).  Returns the forward's output, the losses
+    and the forward (on the trained weights; ``pos`` may be replaced)."""
+    import torch
+    from repro_torch.checkpoint.manager import tree_flatten
+    from repro_torch.launch.train import gnn_train_step
+    from repro_torch.models.gnn.equiformer_v2 import equiformer_forward, init_equiformer
+    from repro_torch.optim.optimizers import OptConfig, make_optimizer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_equiformer(0, cfg, device=device)
+    n_params = sum(t.numel() for t in tree_flatten(params)[0])
+
+    def forward(b=batch, pos=None):
+        with torch.no_grad():
+            return equiformer_forward(
+                params, cfg, b["node_feat"], b["pos"] if pos is None else pos,
+                b["edge_src"], b["edge_dst"], graph_ids=b.get("graph_ids"),
+                n_graphs=b.get("n_graphs", 1))
+
+    n, e = batch["node_feat"].shape[0], batch["edge_src"].shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = forward()
+    fwd_ms = served_ms(forward, reps=forward_reps)
+    fwd_peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(out).all()), f"gnn {shape}: non-finite outputs")
+    fwd_flop, _ = gnn_flops(cfg, n, e)
+    log("gnn", shape=shape, stage="forward", nodes=n, edges=e,
+        chunks=-(-e // cfg.edge_chunk), layers=cfg.n_layers, channels=cfg.channels,
+        l_max=cfg.l_max, m_max=cfg.m_max, heads=cfg.n_heads, d_feat=cfg.d_feat_in,
+        readout=cfg.readout, params=n_params, forward_ms=round(fwd_ms, 3),
+        forward_ms_reps=forward_reps, nodes_per_s=round(n / (fwd_ms / 1e3), 1),
+        model_tflop=round(fwd_flop / 1e12, 4),
+        model_flops_share_of_f32_peak=round(fwd_flop / (fwd_ms / 1e3) / F32_FLOP_PER_S, 4),
+        peak_allocated_gb=round(fwd_peak / 2**30, 3), out_abs_max=float(out.abs().max()),
+        **tags)
+    tb = batch if train_batch is None else train_batch
+    tn, te = tb["node_feat"].shape[0], tb["edge_src"].shape[0]
+    opt_cfg = OptConfig(kind="adamw") if lr is None else OptConfig(kind="adamw", lr=lr)
+    init, update = make_optimizer(opt_cfg)
+    opt = init(params)
+    state_bytes = sum(t.numel() * t.element_size() for t in tree_flatten(opt)[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, marks = [], []
+    for _ in range(steps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        params, opt, loss = gnn_train_step(params, opt, tb, cfg=cfg, opt_update=update)
+        end.record()
+        marks.append((start, end))
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(z) for a, z in marks[1:]]
+    losses = [float(x) for x in losses]
+    med = statistics.median(step_ms)
+    peak = torch.cuda.max_memory_allocated()
+    _, step_flop = gnn_flops(cfg, tn, te)
+
+    def step():  # one more step, profiled; its result is dropped
+        gnn_train_step(params, opt, tb, cfg=cfg, opt_update=update)
+
+    profile_call("gnn-profile", step, shape=shape, nodes=tn, edges=te)
+    log("gnn", shape=shape, stage="train", optimizer="adamw", lr=opt_cfg.lr, nodes=tn,
+        edges=te,
+        chunks=-(-te // cfg.edge_chunk), steps=steps, step_ms=round(med, 3),
+        step_ms_timed=[round(x, 3) for x in step_ms], nodes_per_s=round(tn / (med / 1e3), 1),
+        model_tflop_a_step=round(step_flop / 1e12, 4),
+        model_flops_share_of_f32_peak=round(step_flop / (med / 1e3) / F32_FLOP_PER_S, 4),
+        optimizer_state_gb=round(state_bytes / 1e9, 3),
+        peak_allocated_gb=round(peak / 2**30, 3), losses=losses, **tags)
+    check(all(math.isfinite(x) for x in losses), f"gnn {shape}: losses {losses}")
+    return {"out": out, "losses": losses, "forward": forward}
+
+
+def phase_gnn(device="cuda") -> None:
+    """[GNN_ARCH] FULL at full width and depth on the reference's GNN
+    shapes, random weights from seed 0, each shape's d_feat as the input
+    width (as the reference's ``_build_gnn`` sets it).
+
+    * full_graph_sm: ``random_graph(2708, 4, 1433)`` (avg_degree
+      round(10,556 / 2,708)), node readout: ``gnn_cell`` (forward x20,
+      GNN_STEPS steps on the repeated batch, the loss must fall), then
+      the logits under a global rotation and a translation of ``pos``
+      within GNN_EQUIV_TOL of the largest |out|.
+    * molecule: ``molecule_batch(128, 30, 64)``, graph readout, n_out 1:
+      ``gnn_cell`` at GNN_MOLECULE_LR, the loss must fall; the same steps
+      at the default lr logged beside it.
+    * minibatch_lg: the host graph at its full shape (``random_graph(
+      232,965, 492, 602)``, ~114.6M edges; build and CSR seconds), one
+      ``sample_block`` of 1,024 seeds, fanouts (15, 10), padded to
+      170,000/170,000 (host ms a block), the forward at that block in
+      one chunk; training on a block of the most seeds whose reckoned
+      memory fits GNN_TRAIN_MEMORY_SHARE of the card, padded in
+      proportion, labels on the seeds only.
+    * ogb_products is not run (logged: one [N, 49, 128] float32 node
+      tensor is 61.4 GB; it waits for the launch tooling's dry run)."""
+    import numpy as np
+    import torch
+    from scipy.spatial.transform import Rotation
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.synthetic import molecule_batch, random_graph
+    from repro_torch.launch.train import gnn_train_step
+    from repro_torch.models.gnn.equiformer_v2 import init_equiformer
+    from repro_torch.models.gnn.sampler import CSRGraph
+    from repro_torch.optim.optimizers import OptConfig, make_optimizer
+
+    log("gnn", card=smi())
+    t_phase = time.perf_counter()
+    spec = get_arch(GNN_ARCH)
+    shapes = spec.shapes
+
+    # ---- full_graph_sm: Cora-size full batch
+    sh = shapes["full_graph_sm"]
+    cfg = dataclasses.replace(spec.config, d_feat_in=sh["d_feat"])
+    deg = round(sh["n_edges"] / sh["n_nodes"])
+    g = random_graph(sh["n_nodes"], deg, sh["d_feat"], seed=0)
+    batch = gnn_batch(g, device)
+    log("gnn", shape="full_graph_sm", nodes=sh["n_nodes"], avg_degree=deg,
+        edges=len(g["edge_src"]), edges_of_the_shape=sh["n_edges"])
+    cell = gnn_cell("full_graph_sm", cfg, batch, device, forward_reps=GNN_FORWARD_REPS,
+                    steps=GNN_STEPS, cut="none")
+    losses = cell["losses"]
+    check(losses[-1] < losses[0], f"gnn full_graph_sm: the loss did not fall: {losses}")
+    # equivariance of the trained weights' logits at full width
+    rot = torch.from_numpy(Rotation.from_euler("zyx", GNN_ROTATION_ZYX).as_matrix()
+                           .astype(np.float32)).to(device)
+    out0 = cell["forward"]()
+    out_rot = cell["forward"](pos=batch["pos"] @ rot.T)
+    out_shift = cell["forward"](pos=batch["pos"] + GNN_SHIFT)
+    scale = float(out0.abs().max())
+    rot_err = float((out_rot - out0).abs().max())
+    shift_err = float((out_shift - out0).abs().max())
+    log("gnn", shape="full_graph_sm", check="equivariance", out_abs_max=scale,
+        rotation_max_abs_err=rot_err, translation_max_abs_err=shift_err,
+        tol=f"{GNN_EQUIV_TOL}*out_abs_max")
+    check(rot_err <= GNN_EQUIV_TOL * scale and shift_err <= GNN_EQUIV_TOL * scale,
+          f"gnn full_graph_sm: not invariant: rotation {rot_err}, translation {shift_err}")
+    del cell, batch, out0, out_rot, out_shift
+
+    # ---- molecule: batched small graphs, graph readout
+    sh = shapes["molecule"]
+    cfg = dataclasses.replace(spec.config, d_feat_in=sh["d_feat"], readout="graph", n_out=1)
+    batch = gnn_batch(molecule_batch(sh["batch"], sh["n_nodes"], sh["n_edges"], seed=0), device)
+    cell = gnn_cell("molecule", cfg, batch, device, forward_reps=GNN_FORWARD_REPS,
+                    steps=GNN_STEPS, lr=GNN_MOLECULE_LR, molecules=sh["batch"], cut="none")
+    losses = cell["losses"]
+    check(cell["out"].shape == (sh["batch"], 1), f"gnn molecule: out {tuple(cell['out'].shape)}")
+    check(losses[-1] < losses[0], f"gnn molecule: the loss did not fall: {losses}")
+    del cell
+    # the same steps at OptConfig's default lr, from the same weights: logged
+    params = init_equiformer(0, cfg, device=device)
+    init, update = make_optimizer(OptConfig(kind="adamw"))
+    opt, default_losses = init(params), []
+    for _ in range(GNN_STEPS):
+        params, opt, loss = gnn_train_step(params, opt, batch, cfg=cfg, opt_update=update)
+        default_losses.append(float(loss))
+    log("gnn", shape="molecule", stage="train", lr=OptConfig().lr, losses=default_losses)
+    del params, opt, batch
+
+    # ---- minibatch_lg: the Reddit-size host graph through the sampler
+    sh = shapes["minibatch_lg"]
+    cfg = dataclasses.replace(spec.config, d_feat_in=sh["d_feat"])
+    deg = round(sh["n_edges"] / sh["n_nodes"])
+    t0 = time.perf_counter()
+    g = random_graph(sh["n_nodes"], deg, sh["d_feat"], seed=0)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph = CSRGraph.from_edges(g["edge_src"], g["edge_dst"], sh["n_nodes"])
+    csr_s = time.perf_counter() - t0
+    log("gnn", shape="minibatch_lg", nodes=sh["n_nodes"], avg_degree=deg,
+        edges=len(g["edge_src"]), edges_of_the_shape=sh["n_edges"],
+        build_s=round(build_s, 2), csr_s=round(csr_s, 2))
+    rng = np.random.default_rng(0)
+    seeds = rng.choice(sh["n_nodes"], sh["batch_nodes"], replace=False)
+    host_ms = []
+    for i in range(3):
+        block_np, blk, ms = gnn_block(g, graph, seeds, sh["fanouts"], sh["max_nodes"],
+                                      sh["max_edges"], seed=i)
+        host_ms.append(ms)
+    log("gnn", shape="minibatch_lg", sampler="sample_block", seeds=sh["batch_nodes"],
+        fanouts=list(sh["fanouts"]), max_nodes=sh["max_nodes"], max_edges=sh["max_edges"],
+        block_nodes=blk["n_nodes"], block_edges=blk["n_edges"],
+        host_ms_a_block=[round(x, 1) for x in host_ms])
+    check(blk["n_edges"] > 0 and blk["n_nodes"] > sh["batch_nodes"],
+          f"gnn minibatch_lg: empty block {blk['n_nodes']} nodes {blk['n_edges']} edges")
+    batch = gnn_batch(block_np, device)
+    # the training block: the seeds that fit, the padding cut in proportion
+    per_node_layer = gnn_saved_bytes(cfg, device)
+    reckoned = per_node_layer * cfg.n_layers
+    budget = GNN_TRAIN_MEMORY_SHARE * torch.cuda.get_device_properties(0).total_memory
+    per_seed = reckoned * sh["max_nodes"] / sh["batch_nodes"]
+    n_seeds = min(sh["batch_nodes"], max(32, int(budget / per_seed) // 32 * 32))
+    frac = n_seeds / sh["batch_nodes"]
+    t_nodes, t_edges = round(sh["max_nodes"] * frac), round(sh["max_edges"] * frac)
+    t_np, t_blk, t_ms = gnn_block(g, graph, seeds[:n_seeds], sh["fanouts"], t_nodes,
+                                  t_edges, seed=3)
+    train_batch = gnn_batch(t_np, device)
+    cut = (f"seeds {sh['batch_nodes']}->{n_seeds}, max_nodes/max_edges "
+           f"{sh['max_nodes']}/{sh['max_edges']}->{t_nodes}/{t_edges} (training only)")
+    log("gnn", shape="minibatch_lg", saved_kb_a_node_a_layer=round(per_node_layer / 1e3, 1),
+        budget_gb=round(budget / 1e9, 1), training_seeds=n_seeds,
+        training_block_nodes=t_blk["n_nodes"],
+        training_block_edges=t_blk["n_edges"], host_ms=round(t_ms, 1),
+        reckoned_kept_gb_full_block=round(reckoned * sh["max_nodes"] / 1e9, 1),
+        reckoned_kept_gb_training_block=round(reckoned * t_nodes / 1e9, 1), cut=cut)
+    del g, graph
+    gc.collect()
+    cell = gnn_cell("minibatch_lg", cfg, batch, device, forward_reps=GNN_LG_FORWARD_REPS,
+                    steps=GNN_STEPS, train_batch=train_batch, cut=cut.replace(" ", "_"))
+    losses = cell["losses"]
+    log("gnn", shape="minibatch_lg", loss_fell=losses[-1] < losses[0])
+    del cell, batch, train_batch
+
+    # ---- ogb_products: waits for the launch tooling's dry run
+    sh = shapes["ogb_products"]
+    node_tensor = sh["n_nodes"] * spec.config.s_full * spec.config.channels * 4
+    log("gnn", shape="ogb_products", run=False, nodes=sh["n_nodes"], edges=sh["n_edges"],
+        node_tensor_gb=round(node_tensor / 1e9, 1),
+        waits_for="the launch tooling's dry run (ROADMAP queue 1)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("gnn", seconds=round(time.perf_counter() - t_phase, 1))
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: the port's sources (src/repro_torch) are not "
@@ -3700,6 +4149,11 @@ def main() -> int:
     phase_recsys("cuda")
     phase_recsys_train("cuda")
     records += phase_recsys_retrieval("cuda")
+    # the GNN family: card-to-CPU parity, then full width on its shapes
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_gnn_parity("cuda")
+    phase_gnn("cuda")
     log("done", seconds=round(time.perf_counter() - t_start, 1),
         peak_allocated_gb=round(torch.cuda.max_memory_allocated() / 2**30, 3))
     print(json.dumps({"kernels": records}), flush=True)

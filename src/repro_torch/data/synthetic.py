@@ -1,6 +1,8 @@
 """Deterministic synthetic data, shaped like the public datasets it stands
 in for: vector corpora (SIFT1M 128-d, the paper's DSSM 64-d corpus), the
-LM trainer's token batches and the recsys models' click logs.
+LM trainer's token batches, the recsys models' click logs and the GNN
+family's graphs (a power-law-ish graph with 3D positions, batched small
+molecules).
 
 Same generators as the JAX package's ``repro.data.synthetic``: numpy only,
 so one seed gives the same bytes in both packages.
@@ -74,3 +76,47 @@ def click_stream(
             ).astype(np.int32)
         yield out
         step += 1
+
+
+def random_graph(
+    n_nodes: int, avg_degree: int, d_feat: int, seed: int = 0, n_classes: int = 16
+):
+    """Power-law-ish random graph with 3D positions + features."""
+    rng = np.random.default_rng(seed)
+    n_edges = n_nodes * avg_degree
+    # preferential-attachment flavour: quadratic skew toward low ids
+    src = (rng.random(n_edges) ** 2 * n_nodes).astype(np.int64)
+    dst = rng.integers(0, n_nodes, n_edges)
+    keep = src != dst  # no self loops (degenerate eSCN frames)
+    return {
+        "edge_src": src[keep].astype(np.int32),
+        "edge_dst": dst[keep].astype(np.int32),
+        "node_feat": rng.normal(size=(n_nodes, d_feat)).astype(np.float32),
+        "pos": rng.normal(size=(n_nodes, 3)).astype(np.float32),
+        "label": rng.integers(0, n_classes, n_nodes).astype(np.int32),
+    }
+
+
+def molecule_batch(n_mols: int, nodes_per_mol: int, edges_per_mol: int, seed=0):
+    """Batched small molecules (the ``molecule`` shape): graph regression."""
+    rng = np.random.default_rng(seed)
+    n = n_mols * nodes_per_mol
+    pos = rng.normal(size=(n, 3)).astype(np.float32) * 2.0
+    feat = rng.normal(size=(n, 16)).astype(np.float32)
+    srcs, dsts = [], []
+    for m in range(n_mols):
+        base = m * nodes_per_mol
+        s = rng.integers(0, nodes_per_mol, edges_per_mol)
+        d = (s + 1 + rng.integers(0, nodes_per_mol - 1, edges_per_mol)) % nodes_per_mol
+        srcs.append(base + s)
+        dsts.append(base + d)
+    graph_ids = np.repeat(np.arange(n_mols), nodes_per_mol)
+    return {
+        "node_feat": feat,
+        "pos": pos,
+        "edge_src": np.concatenate(srcs).astype(np.int32),
+        "edge_dst": np.concatenate(dsts).astype(np.int32),
+        "graph_ids": graph_ids.astype(np.int32),
+        "n_graphs": n_mols,
+        "target": rng.normal(size=(n_mols,)).astype(np.float32),
+    }

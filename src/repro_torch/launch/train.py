@@ -15,7 +15,9 @@ Runs on the card unless ``--device`` names another.  The step is a plain
 function (``train_step``): ``lm_loss``, its gradient by autograd, the
 optional bf16 compression, the optimizer's update.  ``rec_train_step`` is
 the recsys models' step (the reference builds it in ``launch/steps.py``):
-``rec_loss``, its gradient, the update.
+``rec_loss``, its gradient, the update.  ``gnn_train_step`` is the GNN
+family's (the reference's ``_build_gnn`` step): ``equiformer_loss``, its
+gradient, the update.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from repro_torch.checkpoint.manager import (
 from repro_torch.configs.base import get_arch
 from repro_torch.core.ivf import _resolve_device
 from repro_torch.data.synthetic import token_stream
+from repro_torch.models.gnn.equiformer_v2 import equiformer_loss
 from repro_torch.models.recsys.models import rec_loss
 from repro_torch.models.transformer import init_lm, lm_loss
 from repro_torch.optim.optimizers import (
@@ -76,6 +79,22 @@ def rec_train_step(params, opt, batch, *, cfg, opt_update):
     leaves, _ = tree_flatten(params)
     live = [p.detach().requires_grad_() for p in leaves]
     loss, _ = rec_loss(tree_unflatten(params, live), cfg, batch)
+    grads = tree_unflatten(params, list(torch.autograd.grad(loss, live)))
+    params, opt = opt_update(grads, opt, params)
+    return params, opt, loss.detach()
+
+
+def gnn_train_step(params, opt, batch, *, cfg, opt_update):
+    """One EquiformerV2 step on ``batch`` (a dict of tensors on the
+    parameters' device, as ``equiformer_loss`` takes it; ``n_graphs``, a
+    Python int, rides in it for the graph readout).  Returns (params, opt,
+    loss): new parameter and optimizer trees and the loss (a 0-d float32
+    tensor, left on the device).  The step runs where the parameters lie:
+    ``init_equiformer`` and ``equiformer_params_from_host`` put them on the
+    card unless the caller names the CPU."""
+    leaves, _ = tree_flatten(params)
+    live = [p.detach().requires_grad_() for p in leaves]
+    loss, _ = equiformer_loss(tree_unflatten(params, live), cfg, batch)
     grads = tree_unflatten(params, list(torch.autograd.grad(loss, live)))
     params, opt = opt_update(grads, opt, params)
     return params, opt, loss.detach()

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import torch
 
 from repro.configs.base import get_arch as jget_arch
+from repro.configs.base import list_archs as jlist_archs
 from repro.kernels import ref as jref
 from repro.kernels.paged_attention import paged_decode_attention as jpaged
 from repro.models import layers as jl
@@ -266,8 +267,10 @@ def test_llama3_8b_config_matches_reference():
         assert cfg.attn_config() == tl.AttnConfig(
             **{f.name: ja[f.name] for f in dataclasses.fields(tl.AttnConfig)})
     assert spec.config.n_params == 8_030_261_248
+    # every arch of the reference is registered, the GNN arch included
+    assert list_archs() == jlist_archs() and len(list_archs()) == 10
     with pytest.raises(KeyError, match="unknown arch"):
-        get_arch("equiformer-v2")  # the GNN arch is not ported yet
+        get_arch("no-such-arch")
 
 
 def test_moe_and_missing_gpu_raise(monkeypatch):
