@@ -105,7 +105,25 @@ the 232,965-node, ~114.6M-edge host graph and its CSR, samples blocks of
 block), runs the forward at that block in one edge chunk, and trains on
 the most seeds whose reckoned memory (autograd's saved bytes a node,
 counted on the card) fits 80% of it, labels on the seeds only.
-ogb_products is logged as waiting for the launch tooling's dry run.
+ogb_products is logged, not run: ``[dryrun]`` traces it.
+
+Last, the launch tooling (``repro_torch.launch``: DeviceMesh, the
+reference's shardings as DTensor placements, the cell builders, the dry
+run, the roofline on the H100's constants).  ``[dryrun-check]`` holds the
+dry run to the card on three cells this script runs: qwen3-1.7b training
+at ``[train]``'s cut, full_graph_sm training and DLRM serve_bulk at
+``[recsys]``'s row cap, each traced on a one-device mesh (a subprocess
+with a fake one-rank group) and run for real: argument bytes equal,
+predicted peak within a factor 2 of ``max_memory_allocated``, the GNN's
+FLOPs within 5% of ``gnn_flops``, each roofline bound at most the
+measured step.  ``[mesh-parity]`` runs the SMOKE LM, DLRM and GNN
+training steps as DTensor programs on a (1, 1) mesh of a real one-rank
+NCCL group against the plain steps (losses within 1e-6) and
+``restore(shardings=)`` against the plain restore (bit for bit).
+``[dryrun]`` runs ``python -m repro_torch.launch.dryrun`` (one process an
+arch, the GNN's one a shape, all at once) over the 35 cells on the (16, 16) and (2, 16, 16)
+meshes: a line a record and the roofline table; every cell traced on
+both meshes, argument bytes equal to the placements' reckoning.
 
 After ``[runtime]``, the ``[durability]`` phase serves the churned float32
 SIFT1M index through a fused-mode ``ServingRuntime`` with a mutation WAL
@@ -328,6 +346,20 @@ GNN_TRAIN_MEMORY_SHARE = 0.8
 # layers together and the loss rises (117 -> 3,337 at step 2); it trains
 # at GNN_MOLECULE_LR, the default's run is logged beside it
 GNN_MOLECULE_LR = 1e-5
+# the launch tooling: ``python -m repro_torch.launch.dryrun`` traces the 35
+# cells on the (16, 16) and (2, 16, 16) meshes, one subprocess an arch (the
+# fake process group never shares a process with CUDA work); the phase
+# fails past DRYRUN_TIMEOUT_S
+DRYRUN_TIMEOUT_S = 600
+# [dryrun-check]: three cells the card runs, traced on a one-device mesh at
+# the real run's cut, their predicted peak within this factor of the
+# measured one, the GNN's traced FLOPs within GNN_FLOPS_TOL of gnn_flops
+DRYRUN_PEAK_RATIO = (0.5, 2.0)
+DRYRUN_GNN_FLOPS_TOL = 0.05
+DRYRUN_STEP_REPS = 2
+# [mesh-parity]: the SMOKE steps as DTensor programs on a (1, 1) mesh of a
+# real one-rank NCCL group against the plain steps: the same local sums
+MESH_PARITY_TOL = 1e-6
 
 
 def log(phase: str, **fields) -> None:
@@ -3910,7 +3942,8 @@ def phase_gnn(device="cuda") -> None:
       memory fits GNN_TRAIN_MEMORY_SHARE of the card, padded in
       proportion, labels on the seeds only.
     * ogb_products is not run (logged: one [N, 49, 128] float32 node
-      tensor is 61.4 GB; it waits for the launch tooling's dry run)."""
+      tensor is 61.4 GB); ``[dryrun]`` traces it on the production
+      meshes."""
     import numpy as np
     import torch
     from scipy.spatial.transform import Rotation
@@ -4028,15 +4061,406 @@ def phase_gnn(device="cuda") -> None:
     log("gnn", shape="minibatch_lg", loss_fell=losses[-1] < losses[0])
     del cell, batch, train_batch
 
-    # ---- ogb_products: waits for the launch tooling's dry run
+    # ---- ogb_products: traced by [dryrun] on the production meshes, not run
     sh = shapes["ogb_products"]
     node_tensor = sh["n_nodes"] * spec.config.s_full * spec.config.channels * 4
     log("gnn", shape="ogb_products", run=False, nodes=sh["n_nodes"], edges=sh["n_edges"],
-        node_tensor_gb=round(node_tensor / 1e9, 1),
-        waits_for="the launch tooling's dry run (ROADMAP queue 1)")
+        node_tensor_gb=round(node_tensor / 1e9, 1), traced_by="[dryrun]")
     gc.collect()
     torch.cuda.empty_cache()
     log("gnn", seconds=round(time.perf_counter() - t_phase, 1))
+
+
+# ------------------------------------------------------ launch tooling ----
+
+
+def _src_env() -> dict:
+    import os
+
+    return dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]),
+                OMP_NUM_THREADS="1")
+
+
+def _run_helper(fn: str, out: str, timeout: int) -> None:
+    """``chip_smoke.<fn>(out)`` in a fresh process (a fake process group
+    must not share a process with this one's CUDA work)."""
+    r = subprocess.run([sys.executable, "-c", f"import chip_smoke; chip_smoke.{fn}({out!r})"],
+                       cwd=ROOT, env=_src_env(), capture_output=True, text=True,
+                       timeout=timeout)
+    check(r.returncode == 0, f"{fn}: exit {r.returncode}: {r.stdout[-2000:]}{r.stderr[-3000:]}")
+
+
+def phase_dryrun() -> None:
+    """[dryrun]: the launch tooling's dry run of every (arch x shape) cell
+    on the (16, 16) and (2, 16, 16) meshes (fake process groups of 256 and
+    512 ranks, fake cuda tensors, nothing allocated), one subprocess an
+    arch (the GNN's, the longest, one a shape), all at once.  Logs each record (trace seconds, per-device
+    argument and temp GiB, fits, FLOPs, collective bytes by kind) and the
+    roofline table over the H100's constants; checks that every cell
+    traced on both meshes with FLOPs and argument bytes above 0, and that
+    the argument bytes each trace held are the placements' reckoning (an
+    LM cell is traced at 1 and 2 layers; its full-depth argument bytes
+    are reckoned)."""
+    import tempfile
+
+    from repro_torch.configs.base import get_arch, list_archs
+    from repro_torch.launch.roofline import format_table, summarize
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    # a process an arch; the GNN's shapes, the longest traces, one each
+    jobs = [(arch, shape) for arch in list_archs()
+            for shape in (sorted(get_arch(arch).shapes)
+                          if get_arch(arch).family == "gnn" else [None])]
+    procs = {}
+    for arch, shape in jobs:
+        name = arch if shape is None else f"{arch}.{shape}"
+        log_f = open(tmp / f"{name}.log", "w")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             *(["--shape", shape] if shape else []), "--out", str(tmp / f"{name}.jsonl")],
+            cwd=ROOT, env=_src_env(), stdout=log_f, stderr=subprocess.STDOUT), log_f)
+    failed = []
+    for name, (proc, log_f) in procs.items():
+        try:
+            rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        log_f.close()
+        if rc != 0:
+            failed.append((name, rc, (tmp / f"{name}.log").read_text()[-3000:]))
+    wall = time.perf_counter() - t0
+    check(not failed, f"dryrun: {[(a, rc) for a, rc, _ in failed]}: "
+          + " | ".join(t for _, _, t in failed))
+    merged = tmp / "dryrun.jsonl"
+    with open(merged, "w") as f:
+        for name in procs:
+            f.write((tmp / f"{name}.jsonl").read_text())
+    records = {(r["arch"], r["shape"], r["mesh"]): r for r in map(json.loads, open(merged))}
+    for (arch, shape, mesh), r in sorted(records.items()):
+        log("dryrun", arch=arch, shape=shape, mesh=mesh, trace_s=r["compile_s"],
+            args_gib=round(r["argument_size_in_bytes"] / 2**30, 3),
+            out_gib=round(r["output_size_in_bytes"] / 2**30, 3),
+            temp_gib=round(r["temp_size_in_bytes"] / 2**30, 3), fits=r["fits"],
+            flops=f"{r['flops']:.4e}", bytes=f"{r['bytes_accessed']:.4e}",
+            coll_bytes={k: f"{v:.4e}" for k, v in r["collectives"]["bytes"].items()},
+            coll_counts=r["collectives"]["counts"],
+            coll_corrected=f"{r.get('collective_bytes_corrected', 0):.4e}",
+            calibration=r.get("calibration", "none"))
+    for line in format_table(summarize(str(merged))).splitlines():
+        print("[dryrun-roofline] " + line, flush=True)
+    want = {(a, s, m) for a in list_archs() for s in get_arch(a).shapes
+            for m in ("16x16", "2x16x16")}
+    check(set(records) == want, f"dryrun: missing {sorted(want - set(records))}")
+    for key, r in records.items():
+        check(r["flops"] > 0 and r["argument_size_in_bytes"] > 0, f"dryrun {key}: {r}")
+        check(r["traced_argument_bytes"] == r["reckoned_argument_bytes"],
+              f"dryrun {key}: traced argument bytes {r['traced_argument_bytes']}, "
+              f"the placements' reckoning {r['reckoned_argument_bytes']}")
+    lm = sum(r.get("calibration") == "lm_extrapolate(L1,L2)" for r in records.values())
+    log("dryrun", cells=len(want) // 2, records=len(records), processes=len(procs),
+        fits=sum(r["fits"] for r in records.values()), seconds=round(wall, 1),
+        argument_bytes=f"traced = reckoned in every trace; the {lm} LM records "
+        "traced at 1 and 2 layers, their full-depth bytes reckoned")
+
+
+def _check_cells() -> list:
+    """[dryrun-check]'s three cells at the real runs' cuts: (tag, ArchSpec,
+    shape, extra), extra holding what the real step needs."""
+    from repro_torch.configs.base import LM_SHAPES, get_arch
+    from repro_torch.data.synthetic import random_graph
+    from repro_torch.launch.steps import pad32
+
+    lm = get_arch(TRAIN_ARCH)
+    lm = dataclasses.replace(lm, shapes={"train_4k": dict(LM_SHAPES["train_4k"],
+                                                          global_batch=TRAIN_BATCH)})
+    gnn = get_arch(GNN_ARCH)
+    sm = gnn.shapes["full_graph_sm"]
+    n = pad32(sm["n_nodes"])
+    g = random_graph(n, round(sm["n_edges"] / sm["n_nodes"]), sm["d_feat"], seed=0)
+    e = pad32(len(g["edge_src"]))
+    gnn = dataclasses.replace(gnn, shapes={"full_graph_sm": dict(sm, n_nodes=n, n_edges=e)})
+    dlrm = get_arch("dlrm-mlperf")
+    dlrm = dataclasses.replace(dlrm, config=rec_config("dlrm-mlperf", DLRM_SERVE_ROWS)[0])
+    return [("lm_train", lm, "train_4k", {}),
+            ("gnn_full_graph_sm", gnn, "full_graph_sm", {"graph": g, "edges": e}),
+            ("dlrm_serve_bulk", dlrm, "serve_bulk", {})]
+
+
+def trace_check_cells(out: str) -> None:
+    """[dryrun-check]'s traces: each cell on a (1, 1) cuda mesh of a fake
+    one-rank group, as ``launch.dryrun.run_cell`` traces it."""
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import fake_process_group, make_mesh
+
+    with fake_process_group(1), open(out, "w") as f:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        for tag, spec, shape, _ in _check_cells():
+            f.write(json.dumps(dict(run_cell(spec, shape, mesh), tag=tag)) + "\n")
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.checkpoint.manager import tree_flatten
+
+    seen, total = set(), 0
+    for t in tree_flatten(tree)[0]:
+        st = t.untyped_storage()
+        if st.data_ptr() not in seen:
+            seen.add(st.data_ptr())
+            total += st.nbytes()
+    return total
+
+
+def _real_step(tag, spec, shape, extra, device) -> dict:
+    """The cell's step run for real on the card: its arguments' bytes, the
+    peak of memory allocated over one step beyond what was resident
+    before the arguments, and the median step ms (CUDA events) of
+    DRYRUN_STEP_REPS steps after a warm one."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.train import gnn_train_step, train_step
+    from repro_torch.models.gnn.equiformer_v2 import init_equiformer
+    from repro_torch.models.recsys.models import apply_rec, init_rec
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim.optimizers import OptConfig, make_optimizer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    sh = spec.shapes[shape]
+    rng = np.random.default_rng(0)
+    if tag == "lm_train":
+        cfg = spec.config
+        params = init_lm(0, cfg, device=device)
+        init, update = make_optimizer(OptConfig(kind="adamw"))
+        opt = init(params)
+        b, s = sh["global_batch"], sh["seq_len"]
+        batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)).to(device)
+                 for k in ("tokens", "labels")}
+        state = [params, opt]
+        del params, opt  # the steps carry them on in ``state``
+
+        def step():
+            state[0], state[1], _, _ = train_step(state[0], state[1], batch["tokens"],
+                                                  batch["labels"], cfg=cfg, opt_update=update)
+        args = (*state, batch)
+    elif tag == "gnn_full_graph_sm":
+        cfg = dataclasses.replace(spec.config, d_feat_in=sh["d_feat"])
+        params = init_equiformer(0, cfg, device=device)
+        init, update = make_optimizer(OptConfig(kind="adamw"))
+        opt = init(params)
+        g, n, e = extra["graph"], sh["n_nodes"], extra["edges"]
+        pad = e - len(g["edge_src"])  # sentinel edges into row n
+        host = dict(g, edge_src=np.concatenate([g["edge_src"], np.zeros(pad, np.int32)]),
+                    edge_dst=np.concatenate([g["edge_dst"], np.full(pad, n, np.int32)]))
+        batch = gnn_batch(host, device)
+        state = [params, opt]
+        del params, opt  # the steps carry them on in ``state``
+
+        def step():
+            state[0], state[1], _ = gnn_train_step(state[0], state[1], batch, cfg=cfg,
+                                                   opt_update=update)
+        args = (*state, batch)
+    else:
+        cfg = spec.config
+        params = init_rec(0, cfg, device=device)
+        batch = rec_batch(cfg, sh["batch"], device)
+        batch.pop("label")
+
+        state = [params]
+        del params
+
+        def step():
+            apply_rec(state[0], cfg, batch)
+        args = (*state, batch)
+    arg_bytes = _tree_bytes(args)
+    del args
+    step()  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = []
+    for _ in range(DRYRUN_STEP_REPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        step()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    out = {"arg_bytes": arg_bytes, "peak": torch.cuda.max_memory_allocated() - base,
+           "step_ms": statistics.median(a.elapsed_time(z) for a, z in marks)}
+    del step, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dryrun_check(device="cuda") -> None:
+    """[dryrun-check]: the dry run held to the card on three cells the
+    script runs for real: qwen3-1.7b training at [train]'s cut (B 2 x 4096,
+    AdamW, remat), full_graph_sm training (the shape's graph, 2,720 nodes:
+    2,708 padded to a multiple of 32, edges padded with sentinels) and
+    DLRM serve_bulk at [recsys]'s row cap.  Each is traced on a one-device
+    mesh in a subprocess and run on the card: the traced argument bytes
+    must equal the real step's tensors' exactly, the predicted peak
+    (arguments, outputs and temp) must lie within DRYRUN_PEAK_RATIO of
+    ``max_memory_allocated`` over a step, full_graph_sm's FLOPs within
+    DRYRUN_GNN_FLOPS_TOL of ``gnn_flops``, and each roofline bound at most
+    the measured step time."""
+    import tempfile
+
+    from repro_torch.launch.roofline import roofline_terms
+
+    t0 = time.perf_counter()
+    out = str(Path(tempfile.mkdtemp(prefix="dryrun_check_")) / "traces.jsonl")
+    _run_helper("trace_check_cells", out, DRYRUN_TIMEOUT_S)
+    recs = {r["tag"]: r for r in map(json.loads, open(out))}
+    for tag, spec, shape, extra in _check_cells():
+        rec, real = recs[tag], _real_step(tag, spec, shape, extra, device)
+        terms = roofline_terms(rec)
+        predicted = (rec["argument_size_in_bytes"] + rec["output_size_in_bytes"]
+                     + rec["temp_size_in_bytes"])
+        ratio = predicted / real["peak"]
+        bound_ms = terms["bound_s"] * 1e3
+        fields = {}
+        if tag == "gnn_full_graph_sm":
+            cfg = dataclasses.replace(spec.config, d_feat_in=spec.shapes[shape]["d_feat"])
+            _, want = gnn_flops(cfg, spec.shapes[shape]["n_nodes"], extra["edges"])
+            fields = {"gnn_flops": f"{want:.4e}", "flops_rel_err": round(rec["flops"] / want - 1, 5)}
+        log("dryrun-check", cell=tag, arch=spec.arch_id, shape=shape,
+            traced_arg_bytes=rec["argument_size_in_bytes"], real_arg_bytes=real["arg_bytes"],
+            predicted_peak_gib=round(predicted / 2**30, 3),
+            measured_peak_gib=round(real["peak"] / 2**30, 3), peak_ratio=round(ratio, 4),
+            flops=f"{rec['flops']:.4e}", bytes=f"{rec['bytes_accessed']:.4e}",
+            bound_ms=round(bound_ms, 3), bound_by=terms["dominant"],
+            measured_step_ms=round(real["step_ms"], 3),
+            bound_over_measured=round(bound_ms / real["step_ms"], 4),
+            trace_s=rec["compile_s"], **fields)
+        check(rec["argument_size_in_bytes"] == real["arg_bytes"],
+              f"dryrun-check {tag}: traced argument bytes {rec['argument_size_in_bytes']}, "
+              f"the real step's {real['arg_bytes']}")
+        check(DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1],
+              f"dryrun-check {tag}: predicted/measured peak {ratio:.4f}")
+        check(bound_ms <= real["step_ms"],
+              f"dryrun-check {tag}: roofline bound {bound_ms:.3f} ms above the measured "
+              f"{real['step_ms']:.3f} ms")
+        if fields:
+            check(abs(fields["flops_rel_err"]) <= DRYRUN_GNN_FLOPS_TOL,
+                  f"dryrun-check {tag}: traced FLOPs off gnn_flops by {fields['flops_rel_err']}")
+    log("dryrun-check", seconds=round(time.perf_counter() - t0, 1))
+
+
+def _parity_spec(arch: str, shape: str):
+    """The arch's SMOKE config at a few rows of ``shape``."""
+    from repro_torch.configs.base import get_arch
+
+    spec = get_arch(arch)
+    shapes = {k: dict(v) for k, v in spec.shapes.items()}
+    s = shapes[shape]
+    if spec.family == "lm":
+        s.update(global_batch=4, seq_len=24)
+    elif spec.family == "recsys":
+        s.update(batch=64)
+    else:
+        s.update(n_nodes=96, n_edges=320)
+    return dataclasses.replace(spec, config=spec.smoke_config, shapes=shapes)
+
+
+def phase_mesh_parity(device="cuda") -> None:
+    """[mesh-parity]: a real one-rank NCCL group on a (1, 1) cuda mesh.
+    The SMOKE LM, DLRM and GNN training steps as DTensor programs through
+    ``build_cell`` against the plain steps (the launchers' steps on plain
+    tensors): losses within MESH_PARITY_TOL relative.  Then
+    ``CheckpointManager.restore(shardings=)`` of a saved bf16 + float32
+    tree against the plain restore, bit for bit.  The group is destroyed
+    before the script goes on."""
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.launch.train import gnn_train_step, rec_train_step, train_step
+    from repro_torch.models.gnn.equiformer_v2 import init_equiformer
+    from repro_torch.models.recsys.models import init_rec
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim.optimizers import OptConfig, make_optimizer
+
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device)
+        init, update = make_optimizer(OptConfig(kind="adamw"))
+        rng = np.random.default_rng(0)
+
+        def t(a):
+            return torch.from_numpy(a).to(device)
+
+        def both(name, spec, shape, params, batch, plain):
+            cell = build_cell(spec, shape, mesh)
+            opt = init(params)
+            want = float(plain(params, opt, batch))
+            _, _, got = cell.fn(*sh.distribute((params, opt, batch), cell.in_shardings))
+            got = float(got["loss"].full_tensor() if hasattr(got["loss"], "full_tensor")
+                        else got["loss"])
+            rel = abs(got - want) / abs(want)
+            log("mesh-parity", step=name, arch=spec.arch_id, loss_plain=want,
+                loss_mesh=got, rel_err=rel, tol=MESH_PARITY_TOL)
+            check(rel <= MESH_PARITY_TOL, f"mesh-parity {name}: {got} vs {want}")
+
+        spec = _parity_spec("qwen3-1.7b", "train_4k")
+        cfg = spec.config
+        toks = rng.integers(0, cfg.vocab, (2, 4, 24)).astype(np.int32)
+        both("lm_train", spec, "train_4k", init_lm(0, cfg, device=device),
+             {"tokens": t(toks[0]), "labels": t(toks[1])},
+             lambda p, o, b: train_step(p, o, b["tokens"], b["labels"], cfg=cfg,
+                                        opt_update=update)[2])
+        spec = _parity_spec("dlrm-mlperf", "train_batch")
+        rcfg = spec.config
+        batch = rec_batch(rcfg, 64, device, seed=1)
+        batch["sparse"] = batch["sparse"].to(torch.int32)
+        both("dlrm_train", spec, "train_batch", init_rec(0, rcfg, device=device), batch,
+             lambda p, o, b: rec_train_step(p, o, b, cfg=rcfg, opt_update=update)[2])
+        spec = _parity_spec(GNN_ARCH, "full_graph_sm")
+        d_feat = spec.shapes["full_graph_sm"]["d_feat"]
+        gcfg = dataclasses.replace(spec.config, d_feat_in=d_feat)
+        n, e = 96, 320
+        gb = {"node_feat": t(rng.normal(size=(n, d_feat)).astype(np.float32)),
+              "pos": t(rng.normal(size=(n, 3)).astype(np.float32)),
+              "edge_src": t(rng.integers(0, n, e).astype(np.int32)),
+              "edge_dst": t(rng.integers(0, n, e).astype(np.int32)),
+              "label": t(rng.integers(-1, gcfg.n_out, n).astype(np.int32))}
+        both("gnn_train", spec, "full_graph_sm", init_equiformer(0, gcfg, device=device), gb,
+             lambda p, o, b: gnn_train_step(p, o, b, cfg=gcfg, opt_update=update)[2])
+
+        # elastic restore onto the mesh, bit for bit
+        mgr = CheckpointManager(tempfile.mkdtemp(prefix="mesh_restore_"))
+        w = torch.from_numpy(rng.normal(size=(6, 5)).astype(np.float32)).to(torch.bfloat16)
+        like = {"w": w, "b": torch.from_numpy(rng.normal(size=7).astype(np.float32))}
+        mgr.save(1, like)
+        plain, _ = mgr.restore(like=like, device=device)
+        placed, _ = mgr.restore(like=like, shardings={
+            "w": sh.NamedSharding(mesh, sh.P("data", None)),
+            "b": sh.NamedSharding(mesh, sh.P("model"))})
+        equal = all(torch.equal(placed[k].to_local().view(torch.int16 if k == "w" else torch.int32),
+                                plain[k].view(torch.int16 if k == "w" else torch.int32))
+                    for k in like)
+        log("mesh-parity", step="restore_shardings", leaves=len(like),
+            dtypes=[str(placed[k].dtype) for k in sorted(like)], bit_equal=equal)
+        check(equal, "mesh-parity: restore(shardings=) differs from the plain restore")
+    finally:
+        dist.destroy_process_group()
+    log("mesh-parity", seconds=round(time.perf_counter() - t0, 1))
+
 
 
 def main() -> int:
@@ -4154,6 +4578,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_gnn_parity("cuda")
     phase_gnn("cuda")
+    # the launch tooling: the dry run held to the card, the mesh path on a
+    # one-rank group, then the dry run of every cell on both meshes
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_dryrun_check("cuda")
+    phase_mesh_parity("cuda")
+    phase_dryrun()
     log("done", seconds=round(time.perf_counter() - t_start, 1),
         peak_allocated_gb=round(torch.cuda.max_memory_allocated() / 2**30, 3))
     print(json.dumps({"kernels": records}), flush=True)

@@ -24,7 +24,8 @@ restores in the other:
   :class:`CheckpointCorruption` (the reference cannot restore its own bf16
   leaves: ``jnp`` refuses ``<V2``).
 * ``restore`` rebuilds the tree from a ``like`` template with tensors on
-  ``device``.  Leaves are loaded by their explicit ``arr_<i>`` key (never
+  ``device``, or with ``shardings`` as DTensors on a device mesh (elastic
+  restore: each rank keeps its own slice).  Leaves are loaded by their explicit ``arr_<i>`` key (never
   ``data.files`` iteration order), and a leaf-count mismatch raises
   :class:`CheckpointCorruption`, not a bare assert.
 * ``latest_step`` + retention give crash-loop safety; ``_gc`` also sweeps
@@ -262,17 +263,17 @@ class CheckpointManager:
     ):
         """Load a checkpoint.  ``like`` provides the tree structure; the
         leaves come back as tensors on ``device`` (the card unless the
-        caller names one).  ``shardings`` (the reference's elastic
-        re-shard onto a mesh) waits for DTensor, ROADMAP queue 1 item 11."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...): re-sharding onto a device mesh "
-                "needs DTensor, ROADMAP queue 1 item 11"
-            )
+        caller names one).  ``shardings`` (a tree like ``like`` whose leaves
+        are ``launch.shardings.NamedSharding``: a mesh and its placements)
+        re-shards onto the current mesh -- elastic restore: each leaf
+        becomes a DTensor of which every rank keeps its own slice, with no
+        communication, as ``jax.device_put(h, s)`` does; ``device`` is then
+        each sharding's mesh."""
         # core imports this module (through the runtime): import it here
         from repro_torch.core.ivf import _resolve_device
 
-        device = _resolve_device(device)
+        if shardings is None:
+            device = _resolve_device(device)
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -302,8 +303,20 @@ class CheckpointManager:
                 f"{d}: checkpoint has {len(host)} leaves but the `like` "
                 f"template has {len(leaves)} — schema mismatch"
             )
-        dev = [_leaf(h, t, f"{d}: leaf {i}").to(device)
-               for i, (h, t) in enumerate(zip(host, leaves))]
+        if shardings is None:
+            dev = [_leaf(h, t, f"{d}: leaf {i}").to(device)
+                   for i, (h, t) in enumerate(zip(host, leaves))]
+            return tree_unflatten(like, dev), manifest
+        from torch.distributed.tensor import distribute_tensor
+
+        sleaves, sdef = tree_flatten(shardings)
+        if sdef != tree_flatten(like)[1]:
+            raise CheckpointCorruption(
+                f"{d}: the shardings tree {sdef} does not match the `like` "
+                f"template's {tree_flatten(like)[1]}")
+        dev = [distribute_tensor(_leaf(h, t, f"{d}: leaf {i}"), s.mesh, s.placements,
+                                 src_data_rank=None)
+               for i, (h, t, s) in enumerate(zip(host, leaves, sleaves))]
         return tree_unflatten(like, dev), manifest
 
 

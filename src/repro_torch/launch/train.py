@@ -14,10 +14,11 @@ Fault tolerance, as the reference's:
 Runs on the card unless ``--device`` names another.  The step is a plain
 function (``train_step``): ``lm_loss``, its gradient by autograd, the
 optional bf16 compression, the optimizer's update.  ``rec_train_step`` is
-the recsys models' step (the reference builds it in ``launch/steps.py``):
-``rec_loss``, its gradient, the update.  ``gnn_train_step`` is the GNN
-family's (the reference's ``_build_gnn`` step): ``equiformer_loss``, its
-gradient, the update.
+the recsys models' step: ``rec_loss``, its gradient, the update.
+``gnn_train_step`` is the GNN family's: ``equiformer_loss``, its gradient,
+the update.  The launch tooling's cell builders (``launch/steps.py``)
+train with these same three steps, on DTensors, with a mesh's ``shard``
+callback.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import sys
 import tempfile
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint.manager import (
     MANIFEST_STEP_KEY,
@@ -40,6 +42,7 @@ from repro_torch.configs.base import get_arch
 from repro_torch.core.ivf import _resolve_device
 from repro_torch.data.synthetic import token_stream
 from repro_torch.models.gnn.equiformer_v2 import equiformer_loss
+from repro_torch.models.layers import no_shard
 from repro_torch.models.recsys.models import rec_loss
 from repro_torch.models.transformer import init_lm, lm_loss
 from repro_torch.optim.optimizers import (
@@ -53,14 +56,27 @@ DATA_CURSOR_KEY = "data_cursor"
 LR = 1e-3
 
 
-def train_step(params, opt, tokens, labels, *, cfg, opt_update, compress=False):
+def _grads(loss, live: list) -> list:
+    """d loss / d live.  On a mesh each gradient is brought to its
+    parameter's placements (the data-parallel all-reduce or
+    reduce-scatter), so the optimizer's update runs on each device's own
+    shard and the new parameters keep their layout."""
+    grads = torch.autograd.grad(loss, live)
+    return [g.redistribute(p.device_mesh, p.placements) if isinstance(g, DTensor) else g
+            for g, p in zip(grads, live)]
+
+
+def train_step(params, opt, tokens, labels, *, cfg, opt_update, compress=False,
+               shard=no_shard):
     """One step.  Returns (params, opt, loss, grad_norm): new parameter
     and optimizer trees, the loss and the gradients' global L2 norm (0-d
-    float32 tensors, left on the device)."""
+    float32 tensors, left on the device).  ``shard`` is the mesh's
+    activation callback (``launch/shardings.py``) where the trees are
+    DTensors."""
     leaves, _ = tree_flatten(params)
     live = [p.detach().requires_grad_() for p in leaves]
-    loss, _ = lm_loss(tree_unflatten(params, live), cfg, tokens, labels)
-    grads = torch.autograd.grad(loss, live)
+    loss, _ = lm_loss(tree_unflatten(params, live), cfg, tokens, labels, shard)
+    grads = _grads(loss, live)
     norm = torch.linalg.vector_norm(torch.stack(
         [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))
     grads = tree_unflatten(params, list(grads))
@@ -72,19 +88,19 @@ def train_step(params, opt, tokens, labels, *, cfg, opt_update, compress=False):
     return params, opt, loss.detach(), norm
 
 
-def rec_train_step(params, opt, batch, *, cfg, opt_update):
+def rec_train_step(params, opt, batch, *, cfg, opt_update, shard=no_shard):
     """One recsys step on ``batch`` (a dict of tensors, as ``apply_rec``
     takes it).  Returns (params, opt, loss): new parameter and optimizer
     trees and the loss (a 0-d float32 tensor, left on the device)."""
     leaves, _ = tree_flatten(params)
     live = [p.detach().requires_grad_() for p in leaves]
-    loss, _ = rec_loss(tree_unflatten(params, live), cfg, batch)
-    grads = tree_unflatten(params, list(torch.autograd.grad(loss, live)))
+    loss, _ = rec_loss(tree_unflatten(params, live), cfg, batch, shard)
+    grads = tree_unflatten(params, _grads(loss, live))
     params, opt = opt_update(grads, opt, params)
     return params, opt, loss.detach()
 
 
-def gnn_train_step(params, opt, batch, *, cfg, opt_update):
+def gnn_train_step(params, opt, batch, *, cfg, opt_update, shard=no_shard):
     """One EquiformerV2 step on ``batch`` (a dict of tensors on the
     parameters' device, as ``equiformer_loss`` takes it; ``n_graphs``, a
     Python int, rides in it for the graph readout).  Returns (params, opt,
@@ -94,8 +110,8 @@ def gnn_train_step(params, opt, batch, *, cfg, opt_update):
     card unless the caller names the CPU."""
     leaves, _ = tree_flatten(params)
     live = [p.detach().requires_grad_() for p in leaves]
-    loss, _ = equiformer_loss(tree_unflatten(params, live), cfg, batch)
-    grads = tree_unflatten(params, list(torch.autograd.grad(loss, live)))
+    loss, _ = equiformer_loss(tree_unflatten(params, live), cfg, batch, shard)
+    grads = tree_unflatten(params, _grads(loss, live))
     params, opt = opt_update(grads, opt, params)
     return params, opt, loss.detach()
 

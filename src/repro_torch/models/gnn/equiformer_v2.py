@@ -17,8 +17,12 @@ reference's ``repro.models.gnn.equiformer_v2``).
 Parameters are plain dicts of tensors under the reference's names and
 layouts, the layers stacked on a leading ``[n_layers]`` axis;
 ``equiformer_params_from_host`` loads the reference's ``init_equiformer``
-tree from numpy, so both packages compute with the same weights.  The
-reference's ``shard`` callbacks are dropped: the port runs on one card.
+tree from numpy, so both packages compute with the same weights.
+``equiformer_forward`` and ``equiformer_loss`` take the reference's
+optional ``shard`` callback (``act_nodes``, ``layers.NoShard``).  Under a
+device mesh (``launch/shardings.py``: nodes and edges over the batch
+axes, channels over "model") the mesh runs ``aggregate``, ``node_ffn``
+and ``graph_readout`` in forms of its own (``launch/mesh_forms.py``).
 
 An edge whose ``dst`` is ``n`` is padding (``sample_block`` pads so): its
 gathers read node ``min(dst, n - 1)``, so it is not of zero length (its
@@ -39,8 +43,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.ivf import _resolve_device
-from repro_torch.models.gnn.wigner import edge_wigner
-from repro_torch.models.layers import _normal
+from repro_torch.models.gnn.wigner import cache_key, edge_wigner
+from repro_torch.models.layers import Shard, _normal, no_shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,13 +192,14 @@ def _apply_wigner(d_blocks, x: torch.Tensor, l_max: int, transpose: bool = False
 
 
 @functools.lru_cache(maxsize=None)
-def _layout(cfg: EquiformerConfig, device: str):
+def _layout(cfg: EquiformerConfig, key: tuple):
     """Index tensors of the compact edge-frame layout: the R rows with
     |m| <= m_max in ``m_indices`` order (l ascending, m ascending; each
     l's rows l-k..l+k of its block, k = min(l, m_max)).  Returns (the
     per-m (pos, neg) compact row indices, the permutation that orders the
     SO(2) outputs [m0, m1 real, m1 imag, ...] into compact rows, the
-    compact rows' full indices)."""
+    compact rows' full indices).  ``key``: ``wigner.cache_key``."""
+    device = key[0]
     full = cfg.m_indices()
     where = {int(f): i for i, f in enumerate(full)}
     groups, order = [], []
@@ -212,7 +217,7 @@ def _so2_rows(p, cfg: EquiformerConfig, h: torch.Tensor) -> torch.Tensor:
     """Per-m complex linear mixing in the edge frame on the compact rows:
     h [E, R, 2C] -> [E, R, C]."""
     e, c = h.shape[0], cfg.channels
-    groups, unperm, _ = _layout(cfg, str(h.device))
+    groups, unperm, _ = _layout(cfg, cache_key(h))
     outs = []
     for mi, (pos, neg) in enumerate(groups):
         fr = h.index_select(1, pos).reshape(e, -1)  # [E, n*2C]
@@ -230,7 +235,7 @@ def _so2_conv(p, cfg: EquiformerConfig, h: torch.Tensor) -> torch.Tensor:
     """The reference's form: h [E, S, 2C] (rotated source and target
     features side by side) -> [E, S, C] with only the |m| <= m_max rows
     populated (for m = 0, ``pos`` is ``neg``: written once)."""
-    _, _, full = _layout(cfg, str(h.device))
+    _, _, full = _layout(cfg, cache_key(h))
     out = h.new_zeros((h.shape[0], cfg.s_full, cfg.channels))
     out[:, full] = _so2_rows(p, cfg, h.index_select(1, full))
     return out
@@ -354,29 +359,47 @@ class _Aggregate(torch.autograd.Function):
         return (None, None, None, None, *grads)
 
 
-def _attention_layer(lp, cfg: EquiformerConfig, x, pos, edge_src, edge_dst):
-    """One eSCN graph-attention block, then the equivariant FFN."""
-    n, s, c = x.shape
+def aggregate(lp, cfg: EquiformerConfig, xn, pos, edge_src, edge_dst):
+    """The attention-weighted sum of the messages into each node, xn
+    [N, S, C] -> [N, S, C]."""
+    n, s, c = xn.shape
     heads = cfg.n_heads
-    xn = _irrep_norm(x, lp["norm_scale"], cfg.l_max)
     num, den = _Aggregate.apply(cfg, n, edge_src, edge_dst, xn, pos,
                                 *[lp[k] for k in _chunk_keys(cfg)])
     den = torch.clamp(den, min=1e-9)
     ch = c // heads
-    agg = (num[:n].reshape(n, s, heads, ch) / den[:n, None, :, None]).reshape(n, s, c)
-    del xn, num, den  # under no_grad a node tensor each (autograd keeps its own)
-    x = x + agg
-    del agg
+    return (num[:n].reshape(n, s, heads, ch) / den[:n, None, :, None]).reshape(n, s, c)
 
-    # ---- equivariant FFN: scalar-gated nonlinearity + per-l channel mix --
-    xn2 = _irrep_norm(x, lp["norm_scale"], cfg.l_max)
-    scalars = xn2[:, 0]  # [N, C]
+
+def node_ffn(lp, cfg: EquiformerConfig, xn: torch.Tensor) -> torch.Tensor:
+    """The equivariant FFN's output on xn [N, S, C]: a scalar-gated
+    nonlinearity and a per-l channel mix."""
+    n, _, c = xn.shape
+    scalars = xn[:, 0]  # [N, C]
     gates = torch.sigmoid(scalars @ lp["ffn_gate"]).reshape(n, cfg.l_max, c)
     outs = [(F.silu(scalars) @ lp["ffn_mix"][0])[:, None]]
     for l in range(1, cfg.l_max + 1):
-        blk = xn2[:, l * l : (l + 1) * (l + 1)] * gates[:, l - 1][:, None, :]
+        blk = xn[:, l * l : (l + 1) * (l + 1)] * gates[:, l - 1][:, None, :]
         outs.append(blk @ lp["ffn_mix"][l])
-    return x + torch.cat(outs, dim=1)
+    return torch.cat(outs, dim=1)
+
+
+def _attention_layer(lp, cfg: EquiformerConfig, x, pos, edge_src, edge_dst,
+                     shard: Shard = no_shard):
+    """One eSCN graph-attention block, then the equivariant FFN."""
+    xn = _irrep_norm(x, lp["norm_scale"], cfg.l_max)
+    agg = shard.run(aggregate, lp, cfg, xn, pos, edge_src, edge_dst)
+    del xn  # under no_grad a node tensor (autograd keeps its own)
+    x = x + agg
+    del agg
+    xn2 = _irrep_norm(x, lp["norm_scale"], cfg.l_max)
+    return x + shard.run(node_ffn, lp, cfg, xn2)
+
+
+def graph_readout(out: torch.Tensor, graph_ids: torch.Tensor, n_graphs: int):
+    """Per-node outputs [N, n_out] summed by graph -> [n_graphs, n_out]."""
+    return out.new_zeros((int(n_graphs), out.shape[1])).index_add(
+        0, graph_ids.long(), out)
 
 
 def equiformer_forward(
@@ -386,6 +409,7 @@ def equiformer_forward(
     pos: torch.Tensor,  # [N, 3]
     edge_src: torch.Tensor,  # [E] int
     edge_dst: torch.Tensor,  # [E] int; n marks a padded edge
+    shard: Shard = no_shard,
     graph_ids: torch.Tensor | None = None,  # [N] for batched small graphs
     n_graphs: int = 1,
 ) -> torch.Tensor:
@@ -393,31 +417,32 @@ def equiformer_forward(
     n = node_feat.shape[0]
     x0 = node_feat.to(cfg.dtype) @ params["embed_w"]  # [N, C]
     x = torch.cat([x0[:, None], x0.new_zeros((n, cfg.s_full - 1, cfg.channels))], dim=1)
+    x = shard(x, "act_nodes")
     src, dst = edge_src.long(), edge_dst.long()
     # views of each layer's slice; their backward stacks the layers' grads once
     layers = {k: v.unbind(0) for k, v in params["layers"].items()}
     for li in range(cfg.n_layers):
         lp = {k: v[li] for k, v in layers.items()}
-        x = _attention_layer(lp, cfg, x, pos, src, dst)
+        x = _attention_layer(lp, cfg, x, pos, src, dst, shard)
+        x = shard(x, "act_nodes")
 
     inv = x[:, 0]  # invariant channels
     out = F.silu(inv @ params["head_w1"]) @ params["head_w2"]
     if cfg.readout == "graph":
         if graph_ids is None:
             raise ValueError("graph readout needs graph_ids")
-        out = out.new_zeros((int(n_graphs), out.shape[1])).index_add(
-            0, graph_ids.long(), out)
+        out = shard.run(graph_readout, out, graph_ids, n_graphs)
     return out
 
 
-def equiformer_loss(params, cfg: EquiformerConfig, batch: dict):
+def equiformer_loss(params, cfg: EquiformerConfig, batch: dict, shard: Shard = no_shard):
     """Graph readout: mean squared error to ``target``.  Node readout:
     cross-entropy in float32 over the nodes whose ``label`` is >= 0 (-1
     masks a node out; a label >= n_out makes the loss NaN, as in the
     reference).  Returns (loss, {"loss": loss})."""
     out = equiformer_forward(
         params, cfg, batch["node_feat"], batch["pos"], batch["edge_src"],
-        batch["edge_dst"], graph_ids=batch.get("graph_ids"),
+        batch["edge_dst"], shard, graph_ids=batch.get("graph_ids"),
         n_graphs=batch.get("n_graphs", 1),
     )
     if cfg.readout == "graph":

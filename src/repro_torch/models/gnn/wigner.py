@@ -101,9 +101,19 @@ def _host_rotation_tables(l_max: int):
     return out
 
 
+def cache_key(t: torch.Tensor) -> tuple:
+    """Key of the per-device tensor caches: the device, and the fake-tensor
+    mode where ``t`` is a fake tensor (the dry run traces under one mode a
+    cell; a tensor of one mode cannot meet another's)."""
+    mode = getattr(t, "fake_mode", None)
+    return str(t.device), None if mode is None else id(mode)
+
+
 @functools.lru_cache(maxsize=None)
-def _rotation_tables(l_max: int, device: str):
-    """``_host_rotation_tables`` as tensors, copied once per device."""
+def _rotation_tables(l_max: int, key: tuple):
+    """``_host_rotation_tables`` as tensors, copied once per device (and
+    fake mode: ``cache_key``)."""
+    device = key[0]
     return [tuple(torch.from_numpy(t).to(device) for t in per_l)
             for per_l in _host_rotation_tables(l_max)]
 
@@ -131,7 +141,7 @@ def edge_wigner(l_max: int, edge_vec: torch.Tensor) -> list[torch.Tensor]:
     phi = torch.atan2(y, x)  # azimuth
     # R_align = Ry(-theta) @ Rz(-phi) maps the edge direction to +z
     out = []
-    for m, pz, qz, py, qy in _rotation_tables(l_max, str(edge_vec.device)):
+    for m, pz, qz, py, qy in _rotation_tables(l_max, cache_key(edge_vec)):
         dz = _rot_from_phase(m, pz, qz, -phi, +1.0)
         dy = _rot_from_phase(m, py, qy, -theta, -1.0)
         out.append(torch.bmm(dy, dz))

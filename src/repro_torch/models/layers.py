@@ -3,10 +3,13 @@ and single-token decode), SwiGLU (the reference's ``repro.models.layers``).
 
 Parameters are plain dicts of tensors under the reference's names and
 layouts (``wq`` is [d_model, H*dh], activations [B, S, H, dh]), so the
-parity tests hand both packages the same arrays.  The reference's ``shard``
-callbacks are dropped: the port runs on one card.  Compute dtype is the
-params' dtype (bf16 in the production configs); norms, RoPE and softmax
-work in float32.
+parity tests hand both packages the same arrays.  Every block takes the
+reference's optional ``shard`` callback, ``shard(x, logical_name)``, and
+runs the steps that a mesh computes its own way through ``shard.run``
+(``NoShard``); the default ``no_shard`` returns ``x`` and runs each step
+as written, so on one card nothing changes.  Compute dtype is the params'
+dtype (bf16 in the production configs); norms, RoPE and softmax work in
+float32.
 """
 
 from __future__ import annotations
@@ -14,6 +17,41 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+
+class NoShard:
+    """The models' mesh hooks at their one-card forms (``no_shard``).
+
+    ``shard(x, name)`` is the reference's callback: it lays the activation
+    ``x`` out as the logical ``name`` says, and here returns ``x``.
+    ``shard.run(fn, *args)`` runs ``fn``, one of the few steps that a mesh
+    computes on each device's shards in a form of its own (a gather from a
+    sharded table, a device's attention heads, the MoE dispatch, ...),
+    and here runs ``fn`` as written.  A mesh's hooks are
+    ``launch/shardings.py::make_shard_fn``'s, its forms
+    ``launch/mesh_forms.py``'s: the models keep one path."""
+
+    def __call__(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        return x
+
+    def run(self, fn, *args, **kwargs):
+        return fn(*args, **kwargs)
+
+
+Shard = NoShard
+no_shard = NoShard()
+
+
+def split_heads(t: torch.Tensor, n: int, dh: int) -> torch.Tensor:
+    """[B, S, n*dh] -> [B, S, n, dh]."""
+    b, s = t.shape[:2]
+    return t.reshape(b, s, n, dh)
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """[B, S, n, dh] -> [B, S, n*dh]."""
+    b, s, n, dh = t.shape
+    return t.reshape(b, s, n * dh)
 
 
 # ----------------------------------------------------------------- norms --
@@ -88,7 +126,8 @@ def init_attn(gen: torch.Generator, cfg: AttnConfig, dtype=torch.bfloat16,
     return p
 
 
-def _qkv(p: dict, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor):
+def _qkv(p: dict, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
+         shard: Shard = no_shard):
     """x [B, S, D] -> q [B, S, H, dh], k and v [B, S, KV, dh], RoPE'd at
     ``positions`` [B, S] (qk-norm and biases as configured)."""
     b, s, _ = x.shape
@@ -98,9 +137,9 @@ def _qkv(p: dict, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, h, dh)
-    k = k.reshape(b, s, kv, dh)
-    v = v.reshape(b, s, kv, dh)
+    q = shard(shard.run(split_heads, q, h, dh), "act_heads")
+    k = shard(shard.run(split_heads, k, kv, dh), "act_kv_heads")
+    v = shard(shard.run(split_heads, v, kv, dh), "act_kv_heads")
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_scale"])
         k = rmsnorm(k, p["k_scale"])
@@ -148,13 +187,12 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention(p: dict, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
-              causal: bool = True) -> torch.Tensor:
+              shard: Shard = no_shard, causal: bool = True) -> torch.Tensor:
     """Full-sequence (training / prefill) attention: x [B, S, D] at
     ``positions`` [B, S] -> [B, S, D]."""
-    q, k, v = _qkv(p, cfg, x, positions)
-    out = _sdpa_chunked(q, k, v, cfg, causal=causal)
-    b, s = x.shape[:2]
-    return out.reshape(b, s, cfg.n_heads * cfg.d_head) @ p["wo"]
+    q, k, v = _qkv(p, cfg, x, positions, shard)
+    out = shard.run(_sdpa_chunked, q, k, v, cfg, causal=causal)
+    return shard(shard.run(merge_heads, out) @ p["wo"], "act_embed")
 
 
 def attention_decode(
@@ -163,24 +201,28 @@ def attention_decode(
     x: torch.Tensor,  # [B, 1, D] new token embeddings
     k_cache: torch.Tensor,  # [B, S, KV, dh]
     v_cache: torch.Tensor,
-    cache_len: int,  # tokens already cached (one length for the batch)
+    cache_len,  # tokens already cached (one length for the batch)
+    shard: Shard = no_shard,
 ):
     """Single-token decode against a contiguous KV cache.  Returns
     (out [B, 1, D], k_cache, v_cache).  The new K/V are written into the
     caches in place at ``cache_len`` (the reference returns updated
-    copies).  Logits and weights are summed in float32; the weights are
-    rounded to the cache's dtype before the second product, as the
-    reference does."""
+    copies): a Python int, or a 0-d int tensor where the step must not
+    read it on the host (the dry run).  Logits and weights are summed in
+    float32; the weights are rounded to the cache's dtype before the
+    second product, as the reference does."""
     b = x.shape[0]
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    idx = int(cache_len)
-    pos = torch.full((b, 1), idx, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _qkv(p, cfg, x, pos)  # [B, 1, ...]
-    k_cache[:, idx] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[:, idx] = v_new[:, 0].to(v_cache.dtype)
+    idx = cache_len
+    pos = torch.zeros((b, 1), dtype=torch.int32, device=x.device) + idx
+    q, k_new, v_new = _qkv(p, cfg, x, pos, shard)  # [B, 1, ...]
+    shard.run(write_row, k_cache, k_new, idx)
+    shard.run(write_row, v_cache, v_new, idx)
     s = k_cache.shape[1]
     g = h // kv
-    qg = q.reshape(b, kv, g, dh)
+    # on a mesh the cache's sequence takes the "model" axis: the (tiny)
+    # query keeps all its heads on every device
+    qg = shard(q, "act_kv_heads").reshape(b, kv, g, dh)
     logits = torch.einsum(
         "bkgd,bskd->bkgs", qg.to(torch.float32), k_cache.to(torch.float32)
     ) * (dh**-0.5)
@@ -192,7 +234,13 @@ def attention_decode(
         v_cache.to(torch.float32),
     ).to(x.dtype)
     out = o.reshape(b, 1, h * dh) @ p["wo"]
-    return out, k_cache, v_cache
+    return shard(out, "act_embed"), k_cache, v_cache
+
+
+def write_row(cache: torch.Tensor, new: torch.Tensor, at) -> None:
+    """cache [B, S, KV, dh] <- new [B, 1, KV, dh] at position ``at`` (an
+    int or a 0-d int tensor), in place."""
+    cache[:, at] = new[:, 0].to(cache.dtype)
 
 
 # ---------------------------------------------------------------- swiglu --
@@ -207,7 +255,7 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def mlp_swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
-    gate = x @ p["w_gate"]
-    up = x @ p["w_up"]
-    return (torch.nn.functional.silu(gate) * up) @ p["w_down"]
+def mlp_swiglu(p: dict, x: torch.Tensor, shard: Shard = no_shard) -> torch.Tensor:
+    gate = shard(x @ p["w_gate"], "act_ff")
+    up = shard(x @ p["w_up"], "act_ff")
+    return shard((torch.nn.functional.silu(gate) * up) @ p["w_down"], "act_embed")

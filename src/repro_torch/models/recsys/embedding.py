@@ -6,8 +6,10 @@ offsets, as in the reference: a lookup is one gather of ``ids + offsets``
 (``index_select`` on int64 rows).  ``bag_lookup`` computes what the
 reference computes, not ``F.embedding_bag``: the gather of every slot
 (padding ``-1`` reads row 0), the masked weighted sum, and the mean with
-a floor of 1 on the weights' sum.  The reference's ``shard`` callbacks
-are dropped: the port runs on one card.
+a floor of 1 on the weights' sum.  Both take the reference's optional
+``shard`` callback (``act_embed_bag``) and gather through
+``shard.run(take, ...)``: a mesh reads a row-sharded table in a form of
+its own (``launch/mesh_forms.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from repro_torch.models.layers import Shard, no_shard
 
 ROW_PAD = 512  # table rows padded to a multiple of the largest mesh size,
 # as the reference pads them (its stacked table row-shards over the mesh)
@@ -66,12 +69,17 @@ def _offsets(spec: EmbeddingSpec, device) -> torch.Tensor:
     return torch.as_tensor(spec.offsets, dtype=torch.int64).to(device)
 
 
-def lookup(params: dict, spec: EmbeddingSpec, ids: torch.Tensor) -> torch.Tensor:
+def take(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """table rows ``rows`` [...] (int64) -> [..., dim]."""
+    return table.index_select(0, rows.reshape(-1)).reshape(*rows.shape, table.shape[1])
+
+
+def lookup(params: dict, spec: EmbeddingSpec, ids: torch.Tensor,
+           shard: Shard = no_shard) -> torch.Tensor:
     """ids [B, F], one in-field id per field -> [B, F, dim]."""
     table = params["table"]
     rows = ids.to(torch.int64) + _offsets(spec, table.device)[None, :]
-    out = table.index_select(0, rows.reshape(-1))
-    return out.reshape(*ids.shape, spec.dim)
+    return shard(shard.run(take, table, rows), "act_embed_bag")
 
 
 def bag_lookup(
@@ -80,6 +88,7 @@ def bag_lookup(
     ids: torch.Tensor,  # [B, F, L] multi-hot ids, -1 = padding
     weights: torch.Tensor | None = None,  # [B, F, L] per-sample weights
     combiner: str = "sum",
+    shard: Shard = no_shard,
 ) -> torch.Tensor:  # [B, F, dim]
     """EmbeddingBag: gather + masked weighted reduction (sum/mean)."""
     b, f, l = ids.shape
@@ -88,14 +97,14 @@ def bag_lookup(
     rows = torch.where(
         valid, ids.to(torch.int64) + _offsets(spec, table.device)[None, :, None], 0
     )
-    emb = table.index_select(0, rows.reshape(-1)).reshape(b, f, l, spec.dim)
+    emb = shard.run(take, table, rows)
     w = valid.to(emb.dtype)
     if weights is not None:
         w = w * weights.to(emb.dtype)
     out = torch.sum(emb * w[..., None], dim=2)
     if combiner == "mean":
         out = out / torch.clamp(w.sum(dim=2), min=1.0)[..., None]
-    return out
+    return shard(out, "act_embed_bag")
 
 
 def hash_ids(raw: torch.Tensor, vocab: int, salt: int = 0) -> torch.Tensor:

@@ -12,8 +12,10 @@ tensors: ``dense`` [B, n_dense] float, ``sparse`` [B, F] in-field ids,
 ``label`` [B], and for DIEN ``history`` [B, seq_len] item ids.  Params
 are plain dicts and lists of tensors under the reference's names and
 layouts; ``rec_params_from_host`` loads the reference's ``init_rec`` tree
-from numpy, so both packages compute with the same weights.  The
-reference's ``shard`` callbacks are dropped: the port runs on one card.
+from numpy, so both packages compute with the same weights.
+``apply_rec``, ``rec_loss`` and ``score_candidates`` take the reference's
+optional ``shard`` callback (``layers.NoShard``); under a mesh
+(``launch/shardings.py``) the embedding tables are row-sharded DTensors.
 
 The ``retrieval_cand`` shape (one user against 10^6 candidates) is served
 by ``score_candidates`` (a [B, D] x [D, N] product and a top-k) and, as
@@ -30,8 +32,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.ivf import _resolve_device
-from repro_torch.models.layers import _normal
-from repro_torch.models.recsys.embedding import EmbeddingSpec, init_embedding, lookup
+from repro_torch.models.layers import Shard, _normal, no_shard
+from repro_torch.models.recsys.embedding import EmbeddingSpec, init_embedding, lookup, take
 from repro_torch.models.recsys.interactions import (
     cross_layer,
     dot_interaction,
@@ -81,11 +83,11 @@ def _init_dlrm(gen, cfg: RecConfig, dev):
     }
 
 
-def _apply_dlrm(params, cfg: RecConfig, batch):
+def _apply_dlrm(params, cfg: RecConfig, batch, shard: Shard):
     dense = mlp(params["bot"], batch["dense"].to(cfg.dtype), final_act=True)
-    emb = lookup(params["embed"], cfg.spec, batch["sparse"])
+    emb = lookup(params["embed"], cfg.spec, batch["sparse"], shard)
     feats = torch.cat([dense[:, None, :], emb], dim=1)
-    top_in = torch.cat([dot_interaction(feats), dense], dim=-1)
+    top_in = torch.cat([shard.run(dot_interaction, feats), dense], dim=-1)
     return mlp(params["top"], top_in)[:, 0]
 
 
@@ -108,8 +110,8 @@ def _init_dcn(gen, cfg: RecConfig, dev):
     }
 
 
-def _apply_dcn(params, cfg: RecConfig, batch):
-    emb = lookup(params["embed"], cfg.spec, batch["sparse"])
+def _apply_dcn(params, cfg: RecConfig, batch, shard: Shard):
+    emb = lookup(params["embed"], cfg.spec, batch["sparse"], shard)
     x0 = torch.cat([batch["dense"].to(cfg.dtype), emb.reshape(emb.shape[0], -1)], -1)
     x = x0
     for layer in params["cross"]:
@@ -135,10 +137,10 @@ def _init_wide_deep(gen, cfg: RecConfig, dev):
     }
 
 
-def _apply_wide_deep(params, cfg: RecConfig, batch):
-    emb = lookup(params["embed"], cfg.spec, batch["sparse"])
+def _apply_wide_deep(params, cfg: RecConfig, batch, shard: Shard):
+    emb = lookup(params["embed"], cfg.spec, batch["sparse"], shard)
     deep = mlp(params["deep"], emb.reshape(emb.shape[0], -1))[:, 0]
-    wide = lookup(params["wide"], _wide_spec(cfg), batch["sparse"])
+    wide = lookup(params["wide"], _wide_spec(cfg), batch["sparse"], shard)
     return deep + wide.sum(dim=(1, 2))
 
 
@@ -187,16 +189,15 @@ def _init_dien(gen, cfg: RecConfig, dev):
     }
 
 
-def _apply_dien(params, cfg: RecConfig, batch):
-    emb_all = lookup(params["embed"], cfg.spec, batch["sparse"])  # [B, F, D]
+def _apply_dien(params, cfg: RecConfig, batch, shard: Shard):
+    emb_all = lookup(params["embed"], cfg.spec, batch["sparse"], shard)  # [B, F, D]
     target = emb_all[:, 0]  # field 0 = target item
     profile = emb_all[:, 1:].reshape(emb_all.shape[0], -1)
     # history: [B, L] ids in the item vocab; field 0's offset is 0, so
     # the table is read without one, as the reference reads it
     hist_ids = batch["history"].to(torch.int64)
     b, l = hist_ids.shape
-    hist_t = params["embed"]["table"].index_select(0, hist_ids.t().reshape(-1))
-    hist_t = hist_t.reshape(l, b, cfg.embed_dim)  # [L, B, D]
+    hist_t = shard.run(take, params["embed"]["table"], hist_ids.t())  # [L, B, D]
 
     # interest extraction GRU over the sequence, one step at a time.  The
     # steps read views made by one ``unbind``: its backward stacks the
@@ -285,16 +286,16 @@ def rec_params_from_host(tree: dict, cfg: RecConfig, *, device=None) -> dict:
     return params
 
 
-def apply_rec(params, cfg: RecConfig, batch: dict) -> torch.Tensor:
-    return _APPLY[cfg.kind](params, cfg, batch)
+def apply_rec(params, cfg: RecConfig, batch: dict, shard: Shard = no_shard) -> torch.Tensor:
+    return _APPLY[cfg.kind](params, cfg, batch, shard)
 
 
-def rec_loss(params, cfg: RecConfig, batch: dict):
+def rec_loss(params, cfg: RecConfig, batch: dict, shard: Shard = no_shard):
     """Mean binary cross-entropy on the logits, in the reference's form
     ``max(z, 0) - z*y + log1p(exp(-|z|))`` in float32 (not
     ``F.binary_cross_entropy_with_logits``, so both packages round
     alike).  Returns (loss, {"loss": loss})."""
-    logits = apply_rec(params, cfg, batch).to(torch.float32)
+    logits = apply_rec(params, cfg, batch, shard).to(torch.float32)
     labels = batch["label"].to(torch.float32)
     loss = torch.mean(
         torch.clamp(logits, min=0) - logits * labels
@@ -320,11 +321,11 @@ def top_k(scores: torch.Tensor, k: int):
 
 
 def score_candidates(params, cfg: RecConfig, batch: dict, cand_emb: torch.Tensor,
-                     k: int = 100):
+                     shard: Shard = no_shard, k: int = 100):
     """retrieval_cand: user contexts [B, ...] against [N, D] candidate item
     embeddings.  The query is the mean of the user's field embeddings
     [B, D]; scoring is one [B, D] x [D, N] product and ``top_k``.  Returns
     (scores [B, k], candidate ids [B, k] int32)."""
-    emb = lookup(params["embed"], cfg.spec, batch["sparse"])
+    emb = lookup(params["embed"], cfg.spec, batch["sparse"], shard)
     query = emb.mean(dim=1)  # [B, D] pooled user context
     return top_k(query @ cand_emb.T, k)

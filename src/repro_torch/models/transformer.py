@@ -30,6 +30,7 @@ from repro_torch.core.ivf import _resolve_device
 from repro_torch.models import moe
 from repro_torch.models.layers import (
     AttnConfig,
+    Shard,
     _normal,
     _qkv,
     _sdpa_chunked,
@@ -37,7 +38,9 @@ from repro_torch.models.layers import (
     attention_decode,
     init_attn,
     init_mlp,
+    merge_heads,
     mlp_swiglu,
+    no_shard,
     rmsnorm,
 )
 
@@ -143,9 +146,11 @@ def init_lm(seed: int, cfg: LMConfig, *, device=None) -> dict:
     ``jax.random`` draws; ``lm_params_from_host`` carries those across.
     Layers are drawn one at a time into the stacked [L, ...] tensors; a
     one-layer stack is the layer itself (no copy), so a full-width MoE
-    layer is held once."""
+    layer is held once.  On the ``meta`` device it allocates and draws
+    nothing (full-size shapes for the dry run)."""
     dev = _resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    meta = dev.type == "meta"
+    gen = None if meta else torch.Generator(device=dev).manual_seed(seed)
     layers = None
     for i in range(cfg.n_layers):
         lp = _init_layer(gen, cfg, dev)
@@ -154,6 +159,8 @@ def init_lm(seed: int, cfg: LMConfig, *, device=None) -> dict:
             break
         if layers is None:
             layers = _tree_map(lambda t: t.new_empty((cfg.n_layers, *t.shape)), lp)
+        if meta:
+            break
         _tree_map(lambda dst, src: dst[i].copy_(src), layers, lp)
         del lp
     return {
@@ -197,61 +204,81 @@ def lm_params_from_host(tree: dict, cfg: LMConfig, *, device=None) -> dict:
 # --------------------------------------------------------------- forward --
 
 
-def _ffn(lp: dict, cfg: LMConfig, hn: torch.Tensor):
+def _ffn(lp: dict, cfg: LMConfig, hn: torch.Tensor, shard: Shard = no_shard):
     """The layer's feed-forward on hn [B, S, D]: SwiGLU, or the MoE over
     the B*S tokens.  Returns (y [B, S, D], the MoE's aux loss or None)."""
     if not cfg.moe:
-        return mlp_swiglu(lp["mlp"], hn), None
+        return mlp_swiglu(lp["mlp"], hn, shard), None
     b, s, d = hn.shape
-    y, aux = moe.moe_apply(lp["moe"], cfg.moe_config(), hn.reshape(-1, d))
+    y, aux = moe.moe_apply(lp["moe"], cfg.moe_config(), hn.reshape(-1, d), shard)
     return y.reshape(b, s, d), aux["aux_loss"]
 
 
-def _layer_fwd(lp: dict, cfg: LMConfig, x: torch.Tensor, positions: torch.Tensor):
+def _layer_fwd(lp: dict, cfg: LMConfig, x: torch.Tensor, positions: torch.Tensor,
+               shard: Shard = no_shard):
     h = x + attention(lp["attn"], cfg.attn_config(), rmsnorm(x, lp["attn_norm"]),
-                      positions)
-    y, aux = _ffn(lp, cfg, rmsnorm(h, lp["mlp_norm"]))
+                      positions, shard)
+    y, aux = _ffn(lp, cfg, rmsnorm(h, lp["mlp_norm"]), shard)
     return h + y, aux
 
 
-def _embed(params: dict, cfg: LMConfig, tokens: torch.Tensor):
-    b, s = tokens.shape
-    x = params["embed"][tokens.long()].to(cfg.dtype)
-    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` [...] of ``table`` [V, D] -> [..., D]."""
+    return table[ids]
+
+
+def _embed(params: dict, cfg: LMConfig, tokens: torch.Tensor, shard: Shard = no_shard):
+    s = tokens.shape[1]
+    x = shard(shard.run(take_rows, params["embed"], tokens.long()).to(cfg.dtype),
+              "act_embed")
+    # laid out as the tokens are (on a mesh, each device its own rows)
+    positions = torch.zeros_like(tokens, dtype=torch.int64) + torch.arange(
+        s, device=tokens.device)
     return x, positions
 
 
-def forward(params: dict, cfg: LMConfig, tokens: torch.Tensor):
+def forward(params: dict, cfg: LMConfig, tokens: torch.Tensor,
+            shard: Shard = no_shard):
     """Training / prefill forward: tokens [B, S] -> (logits [B, S, V],
     aux loss summed over layers in float32).  With ``cfg.remat`` and
     autograd on, each layer runs under ``torch.utils.checkpoint`` (its
     activations recomputed in the backward, as the reference's
     ``jax.checkpoint``): it saves memory and changes no value."""
-    x, positions = _embed(params, cfg, tokens)
+    x, positions = _embed(params, cfg, tokens, shard)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in layer_views(params):
         if remat:
-            x, al = checkpoint(_layer_fwd, lp, cfg, x, positions, use_reentrant=False)
+            x, al = checkpoint(_layer_fwd, lp, cfg, x, positions, shard,
+                               use_reentrant=False)
         else:
-            x, al = _layer_fwd(lp, cfg, x, positions)
+            x, al = _layer_fwd(lp, cfg, x, positions, shard)
         if al is not None:
             aux = aux + al.to(torch.float32)
     x = rmsnorm(x, params["final_norm"])
-    return x @ params["lm_head"], aux
+    return shard(x @ params["lm_head"], "act_vocab"), aux
+
+
+def logsumexp(x: torch.Tensor) -> torch.Tensor:
+    """log-sum-exp over the last dim."""
+    return torch.logsumexp(x, dim=-1)
+
+
+def label_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits [B, S, V] at labels [B, S] (in range), read into float32."""
+    return torch.gather(logits, -1, labels[..., None])[..., 0].to(torch.float32)
 
 
 def lm_loss(params: dict, cfg: LMConfig, tokens: torch.Tensor, labels: torch.Tensor,
-            aux_weight: float = 0.01):
+            shard: Shard = no_shard, aux_weight: float = 0.01):
     """Mean next-token NLL over labels >= 0 (-100 = ignore), plus
     ``aux_weight`` times the MoE aux loss.  Returns (loss, {"nll",
     "aux"}).  The label logit is gathered (the reference contracts with a
     one-hot, for its vocab-sharded mesh): the same bf16 logit, read into
     float32; the log-sum-exp is taken in float32."""
-    logits, aux = forward(params, cfg, tokens)
-    lse = torch.logsumexp(logits.to(torch.float32), dim=-1)
-    safe = torch.clamp(labels, min=0).long()
-    ll = torch.gather(logits, -1, safe[..., None])[..., 0].to(torch.float32)
+    logits, aux = forward(params, cfg, tokens, shard)
+    lse = shard.run(logsumexp, logits.to(torch.float32))
+    ll = shard.run(label_logit, logits, torch.clamp(labels, min=0).long())
     mask = (labels >= 0).to(torch.float32)
     nll = ((lse - ll) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll + aux_weight * aux, {"nll": nll, "aux": aux}
@@ -269,24 +296,32 @@ def init_kv_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=None,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-def prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor, cache: dict):
+def write_prefix(cache: torch.Tensor, new: torch.Tensor) -> None:
+    """cache [B, S_max, KV, dh] <- new [B, S, KV, dh] at positions [0, S),
+    in place."""
+    cache[:, :new.shape[1]] = new.to(cache.dtype)
+
+
+def prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor, cache: dict,
+            shard: Shard = no_shard):
     """Run the prompt tokens [B, S] and write each layer's K/V for
     positions [0, S) into ``cache`` in place.  Returns (logits of the
     last position [B, V], cache); ``decode_step`` continues from
     ``cache_len = S``."""
-    b, s = tokens.shape
     acfg = cfg.attn_config()
-    x, positions = _embed(params, cfg, tokens)
+    x, positions = _embed(params, cfg, tokens, shard)
     for i, lp in enumerate(layer_views(params)):
-        q, k, v = _qkv(lp["attn"], acfg, rmsnorm(x, lp["attn_norm"]), positions)
-        cache["k"][i, :, :s] = k.to(cache["k"].dtype)
-        cache["v"][i, :, :s] = v.to(cache["v"].dtype)
-        o = _sdpa_chunked(q, k, v, acfg, causal=True)
-        h = x + o.reshape(b, s, cfg.n_heads * cfg.d_head) @ lp["attn"]["wo"]
-        y, _ = _ffn(lp, cfg, rmsnorm(h, lp["mlp_norm"]))
+        q, k, v = _qkv(lp["attn"], acfg, rmsnorm(x, lp["attn_norm"]), positions,
+                       shard)
+        shard.run(write_prefix, cache["k"][i], k)
+        shard.run(write_prefix, cache["v"][i], v)
+        o = shard.run(_sdpa_chunked, q, k, v, acfg, causal=True)
+        o = shard.run(merge_heads, o) @ lp["attn"]["wo"]
+        h = x + shard(o, "act_embed")
+        y, _ = _ffn(lp, cfg, rmsnorm(h, lp["mlp_norm"]), shard)
         x = h + y
     x = rmsnorm(x[:, -1:], params["final_norm"])
-    return (x @ params["lm_head"])[:, 0], cache
+    return shard(x @ params["lm_head"], "act_vocab")[:, 0], cache
 
 
 def decode_step(
@@ -294,19 +329,21 @@ def decode_step(
     cfg: LMConfig,
     token: torch.Tensor,  # [B] most recent token
     cache: dict,
-    cache_len: int,  # tokens already in the cache
+    cache_len,  # tokens already in the cache: an int or a 0-d tensor
+    shard: Shard = no_shard,
 ):
     """One decode step against the contiguous cache.  Returns (logits
     [B, V], cache); the new K/V are written into ``cache`` in place (the
     reference returns an updated copy)."""
     acfg = cfg.attn_config()
-    x = params["embed"][token.long()][:, None].to(cfg.dtype)  # [B, 1, D]
+    x = shard.run(take_rows, params["embed"], token.long())[:, None].to(cfg.dtype)
+    x = shard(x, "act_embed")
     for i, lp in enumerate(layer_views(params)):
         xn = rmsnorm(x, lp["attn_norm"])
         o, _, _ = attention_decode(lp["attn"], acfg, xn, cache["k"][i],
-                                   cache["v"][i], cache_len)
+                                   cache["v"][i], cache_len, shard)
         h = x + o
-        y, _ = _ffn(lp, cfg, rmsnorm(h, lp["mlp_norm"]))
+        y, _ = _ffn(lp, cfg, rmsnorm(h, lp["mlp_norm"]), shard)
         x = h + y
     x = rmsnorm(x, params["final_norm"])
-    return (x @ params["lm_head"])[:, 0], cache
+    return shard(x @ params["lm_head"], "act_vocab")[:, 0], cache

@@ -361,9 +361,10 @@ def test_checkpoint_restore_raises_named_errors(tmp_path):
         json.dump(manifest, f)
     with pytest.raises(CheckpointCorruption, match="manifest says 3"):
         mgr.restore(step=1, like=[np.zeros(3), np.zeros(5)], device="cpu")
-    # re-sharding onto a mesh waits for DTensor
-    with pytest.raises(NotImplementedError, match="item 11"):
-        mgr.restore(step=1, like=[np.zeros(3)], shardings=[None])
+    # a shardings tree that does not match the template: named, not a bare error
+    _save(mgr, 2, [np.arange(3), np.arange(5)])
+    with pytest.raises(CheckpointCorruption, match="shardings tree"):
+        mgr.restore(step=2, like=[np.zeros(3), np.zeros(5)], shardings=[None])
 
 
 # ----------------------------------------------------- end-to-end recovery --
