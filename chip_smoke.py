@@ -4097,10 +4097,12 @@ def phase_dryrun() -> None:
     arch (the GNN's, the longest, one a shape), all at once.  Logs each record (trace seconds, per-device
     argument and temp GiB, fits, FLOPs, collective bytes by kind) and the
     roofline table over the H100's constants; checks that every cell
-    traced on both meshes with FLOPs and argument bytes above 0, and that
+    traced on both meshes with FLOPs and argument bytes above 0, that
     the argument bytes each trace held are the placements' reckoning (an
     LM cell is traced at 1 and 2 layers; its full-depth argument bytes
-    are reckoned)."""
+    are reckoned), and that in each MoE record the mesh dispatch's largest
+    buffer and collective a device stay within the largest buffer of the
+    reference's layout (``mesh_forms.moe_dispatch_bound``)."""
     import tempfile
 
     from repro_torch.configs.base import get_arch, list_archs
@@ -4158,6 +4160,22 @@ def phase_dryrun() -> None:
         check(r["traced_argument_bytes"] == r["reckoned_argument_bytes"],
               f"dryrun {key}: traced argument bytes {r['traced_argument_bytes']}, "
               f"the placements' reckoning {r['reckoned_argument_bytes']}")
+    # the MoE records: the mesh dispatch's largest buffer and collective a
+    # device, held to the largest buffer of the reference's layout (GiB
+    # at bf16, the full configs' dtype)
+    moe = {key: r for key, r in records.items()
+           if getattr(get_arch(key[0]).config, "moe", False)}
+    for (arch, shape, mesh), r in sorted(moe.items()):
+        check("moe_dispatch" in r, f"dryrun {arch} {shape} {mesh}: no MoE dispatch traced")
+        m = r["moe_dispatch"]
+        log("dryrun-moe", arch=arch, shape=shape, mesh=mesh, buffer_elems=m["buffer_elems"],
+            collective_elems=m["collective_elems"], bound_elems=m["bound_elems"],
+            buffer_gib=round(m["buffer_elems"] * 2 / 2**30, 3),
+            bound_gib=round(m["bound_elems"] * 2 / 2**30, 3),
+            temp_gib=round(r["temp_size_in_bytes"] / 2**30, 3), fits=r["fits"])
+        check(max(m["buffer_elems"], m["collective_elems"]) <= m["bound_elems"],
+              f"dryrun {arch} {shape} {mesh}: the MoE dispatch holds {m} elements, above "
+              "the reference layout's bound")
     lm = sum(r.get("calibration") == "lm_extrapolate(L1,L2)" for r in records.values())
     log("dryrun", cells=len(want) // 2, records=len(records), processes=len(procs),
         fits=sum(r["fits"] for r in records.values()), seconds=round(wall, 1),
@@ -4369,9 +4387,10 @@ def _parity_spec(arch: str, shape: str):
 
 def phase_mesh_parity(device="cuda") -> None:
     """[mesh-parity]: a real one-rank NCCL group on a (1, 1) cuda mesh.
-    The SMOKE LM, DLRM and GNN training steps as DTensor programs through
-    ``build_cell`` against the plain steps (the launchers' steps on plain
-    tensors): losses within MESH_PARITY_TOL relative.  Then
+    The SMOKE LM, llama4 MoE, DLRM and GNN training steps as DTensor
+    programs through ``build_cell`` against the plain steps (the
+    launchers' steps on plain tensors): losses within MESH_PARITY_TOL
+    relative.  Then
     ``CheckpointManager.restore(shardings=)`` of a saved bf16 + float32
     tree against the plain restore, bit for bit.  The group is destroyed
     before the script goes on."""
@@ -4405,9 +4424,9 @@ def phase_mesh_parity(device="cuda") -> None:
         def t(a):
             return torch.from_numpy(a).to(device)
 
-        def both(name, spec, shape, params, batch, plain):
+        def both(name, spec, shape, params, batch, plain, opt_init=init):
             cell = build_cell(spec, shape, mesh)
-            opt = init(params)
+            opt = opt_init(params)
             want = float(plain(params, opt, batch))
             _, _, got = cell.fn(*sh.distribute((params, opt, batch), cell.in_shardings))
             got = float(got["loss"].full_tensor() if hasattr(got["loss"], "full_tensor")
@@ -4424,6 +4443,16 @@ def phase_mesh_parity(device="cuda") -> None:
              {"tokens": t(toks[0]), "labels": t(toks[1])},
              lambda p, o, b: train_step(p, o, b["tokens"], b["labels"], cfg=cfg,
                                         opt_update=update)[2])
+        # llama4's MoE training step (Adafactor, as its cell): experts over
+        # "model", capacity over "data" (the mesh's MoE dispatch on one device)
+        spec = _parity_spec("llama4-maverick-400b-a17b", "train_4k")
+        mcfg = spec.config
+        moe_init, moe_update = make_optimizer(OptConfig(kind="adafactor"))
+        toks = rng.integers(0, mcfg.vocab, (2, 4, 24)).astype(np.int32)
+        both("moe_train", spec, "train_4k", init_lm(1, mcfg, device=device),
+             {"tokens": t(toks[0]), "labels": t(toks[1])},
+             lambda p, o, b: train_step(p, o, b["tokens"], b["labels"], cfg=mcfg,
+                                        opt_update=moe_update)[2], opt_init=moe_init)
         spec = _parity_spec("dlrm-mlperf", "train_batch")
         rcfg = spec.config
         batch = rec_batch(rcfg, 64, device, seed=1)

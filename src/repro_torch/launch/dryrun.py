@@ -30,7 +30,11 @@ and more: ``fits``, arguments, outputs and temp together within one
 card's memory (``CARD_BYTES``); ``traced_argument_bytes``, the local
 shards' bytes that each trace made held, and ``reckoned_argument_bytes``,
 the same cells' reckoned from the placements alone (the two lists must
-agree).
+agree); where the step runs the mesh's MoE dispatch, ``moe_dispatch``:
+the elements of the largest storage it made and of the largest
+collective output it issued (the weights' gathers left out), beside
+``bound_elems``, the largest buffer of the reference's layout
+(``mesh_forms.moe_dispatch_bound``).
 
 LM cells are traced at 1 and 2 layers (``steps.calibration_overrides``).
 Flops, bytes, collective bytes and outputs are extrapolated to full
@@ -158,8 +162,13 @@ class _Counter(torch.utils._python_dispatch.TorchDispatchMode):
         self.events: list = []  # (storage serial, +bytes made / -bytes freed)
         self._serial: dict = {}  # id(storage) -> serial, while it lives
         self._known = {id(s) for s in known_storages}
+        # while a scoped form runs (``_dispatch_scope``): the elements of
+        # the largest storage it made and of the largest collective output;
+        # ``moe``: their maxima over its calls
+        self.scope = None
+        self.moe = None
 
-    def _track(self, t: torch.Tensor) -> None:
+    def _track(self, t: torch.Tensor, scoped: bool) -> None:
         st = t.untyped_storage()
         key = id(st)
         if key in self._known or key in self._serial:
@@ -167,6 +176,8 @@ class _Counter(torch.utils._python_dispatch.TorchDispatchMode):
         serial, n = len(self.events), st.nbytes()
         self._serial[key] = serial
         self.events.append((serial, n))
+        if scoped:
+            self.scope["buffer_elems"] = max(self.scope["buffer_elems"], n // t.element_size())
 
         def release(counter=weakref.ref(self)):
             c = counter()
@@ -204,9 +215,15 @@ class _Counter(torch.utils._python_dispatch.TorchDispatchMode):
         if packet in self.flop_registry:
             self.flops += int(self.flop_registry[packet](*args, **kwargs, out_val=out))
         name = packet.__name__
+        # a collective whose input is an argument's storage gathers a weight
+        scoped = self.scope is not None and not (name in _COLLECTIVES and any(
+            id(t.untyped_storage()) in self._known for t in ins))
         if name in _COLLECTIVES:
             self.collectives.append(
                 (_COLLECTIVES[name], sum(t.numel() * t.element_size() for t in outs)))
+            if scoped:
+                self.scope["collective_elems"] = max(
+                    self.scope["collective_elems"], *(t.numel() for t in outs))
         schema = func._schema
         view = bool(schema.returns) and all(
             r.alias_info is not None and not r.alias_info.is_write
@@ -214,8 +231,36 @@ class _Counter(torch.utils._python_dispatch.TorchDispatchMode):
         if not view and outs:
             self.bytes += sum(t.numel() * t.element_size() for t in ins + outs)
         for t in outs:
-            self._track(t)
+            self._track(t, scoped)
         return out
+
+
+@contextlib.contextmanager
+def _dispatch_scope(counter):
+    """While the mesh's MoE dispatch form runs, ``counter`` notes the
+    largest storage it makes and the largest collective it issues (in
+    elements, the weights' gathers left out) beside the bound of the
+    reference's layout (``mesh_forms.moe_dispatch_bound``); the maxima
+    over every call land in ``counter.moe``."""
+    from repro_torch.launch import mesh_forms
+    from repro_torch.models import moe
+
+    form = mesh_forms.FORMS[moe.dispatch]
+
+    def scoped(p, cfg, x, gate, expert, cap, shard):
+        counter.scope = {"buffer_elems": 0, "collective_elems": 0,
+                         "bound_elems": mesh_forms.moe_dispatch_bound(x, cfg, cap, shard)}
+        try:
+            return form(p, cfg, x, gate, expert, cap, shard)
+        finally:
+            seen, counter.scope = counter.scope, None
+            counter.moe = {k: max(v, (counter.moe or seen)[k]) for k, v in seen.items()}
+
+    mesh_forms.FORMS[moe.dispatch] = scoped
+    try:
+        yield
+    finally:
+        mesh_forms.FORMS[moe.dispatch] = form
 
 
 def trace_cell(cell) -> dict:
@@ -240,7 +285,7 @@ def trace_cell(cell) -> dict:
         # the cycle collector would free some at points of its own choosing
         gc.disable()
         try:
-            with _outside_propagation(counter), counter:
+            with _outside_propagation(counter), _dispatch_scope(counter), counter:
                 out = cell.fn(*args)
         finally:
             gc.enable()
@@ -250,7 +295,9 @@ def trace_cell(cell) -> dict:
         temp = counter.peak(skip={counter.serial(t) for t in outs})
         del out, outs
     seconds = time.perf_counter() - t0
+    moe = {"moe_dispatch": counter.moe} if counter.moe else {}
     return {
+        **moe,
         "compile_s": round(seconds, 1),
         "flops": float(counter.flops),
         "bytes_accessed": float(counter.bytes),
@@ -324,6 +371,9 @@ def run_cell(spec, shape_name: str, mesh) -> dict:
             "v1_temp": v1t, "v2_temp": v2t,
         }
         record["calibration"] = "lm_extrapolate(L1,L2)"
+        moe = [v["moe_dispatch"] for v in (v1, v2) if "moe_dispatch" in v]
+        if moe:
+            record["moe_dispatch"] = {k: max(m[k] for m in moe) for k in moe[0]}
     else:
         record.update(trace_cell(cell))
         record["traced_argument_bytes"] = [record["argument_size_in_bytes"]]

@@ -66,6 +66,35 @@ def from_local(t: torch.Tensor, mesh, placements, shape) -> DTensor:
                               shape=torch.Size(shape), stride=tuple(reversed(stride)))
 
 
+def _axis_by_axis(t: DTensor, placements, inner_first: bool = False) -> DTensor:
+    """``t`` redistributed to ``placements`` one mesh dim at a time, outer
+    dims first (for partial sums split over several axes) or inner first
+    (for gathers): DTensor's own plan all-reduces a partial sum whole
+    before splitting it over two axes."""
+    pl, dims = list(t.placements), range(t.device_mesh.ndim)
+    for i in reversed(dims) if inner_first else dims:
+        if pl[i] != placements[i]:
+            pl[i] = placements[i]
+            t = t.redistribute(t.device_mesh, pl)
+    return t
+
+
+class _GatherAxes(torch.autograd.Function):
+    """A DTensor gathered over several mesh axes, inner first, whose
+    gradient (a partial sum on each of them) is reduce-scattered back,
+    outer first: DTensor's own backward would all-reduce it whole over
+    the inner axes first."""
+
+    @staticmethod
+    def forward(ctx, t: DTensor, placements) -> DTensor:
+        ctx.placements = t.placements
+        return _axis_by_axis(t, placements, inner_first=True)
+
+    @staticmethod
+    def backward(ctx, grad: DTensor):
+        return _axis_by_axis(grad, ctx.placements), None
+
+
 def _placed(t: torch.Tensor, mesh, placements) -> DTensor:
     """``t`` (a DTensor, or a plain tensor with the same value on every
     device) laid out by ``placements``; a plain one keeps each device's
@@ -251,25 +280,79 @@ def label_logit(logits: DTensor, labels: torch.Tensor) -> DTensor:
 # ------------------------------------------------------------------ MoE --
 
 
+def _tokens_stay(xpl, blk_pl) -> bool:
+    """Whether the dispatch keeps each device's tokens (training: no mesh
+    axis splits both the token rows and the experts) or gathers them at
+    its feature width (serving: the experts over the token axes)."""
+    return not any(xp == Shard(0) and bp == Shard(0) for xp, bp in zip(xpl, blk_pl))
+
+
+def _ways(mesh, placements, dim: int) -> int:
+    """Into how many blocks ``placements`` split tensor dim ``dim``."""
+    return math.prod(mesh.size(i) for i, pl in enumerate(placements) if pl == Shard(dim))
+
+
+def moe_dispatch_bound(x: DTensor, cfg, cap: int, shard) -> int:
+    """Elements of the largest buffer one device holds in the reference's
+    compiled dispatch, for ``moe_dispatch``'s arguments (rank 0's blocks,
+    the largest; the weights' FSDP gathers left out).  Training:
+    max(E/n_model * cap, T/n_batch + 1) * D, the capacity padded to a
+    multiple of the batch axes' size as XLA pads the all-gather of an
+    uneven shard; serving: max((T + 1) * D/n_model, E/n_data * cap *
+    max(D, F)), the second the expert products' partial sums ([E/n_data,
+    cap, F] from the features split over "model", [E/n_data, cap, D] from
+    F split)."""
+    (t, d), mesh, xpl = x.shape, x.device_mesh, tuple(x.placements)
+    blk_pl = shard.placements["moe_experts"]
+    el = -(-cfg.n_experts // _ways(mesh, blk_pl, 0))
+    if _tokens_stay(xpl, blk_pl):
+        nb = _ways(mesh, blk_pl, 1)
+        return max(el * -(-cap // nb) * nb, -(-t // _ways(mesh, xpl, 0)) + 1) * d
+    return max((t + 1) * -(-d // _ways(mesh, blk_pl, 2)), el * cap * max(d, cfg.d_ff_expert))
+
+
 def moe_dispatch(p, cfg, x: DTensor, gate, expert, cap: int, shard):
-    """``moe.dispatch`` on a mesh, x [T, D] a DTensor whose token rows are
-    sharded over the batch axes.  The capacity stays global, as the
-    reference's: the (token, k) expert ids and gates are gathered (ints
-    and floats, T*K) and every device ranks all pairs.  The tokens are
-    gathered too ([T, D]); each device reads the rows of the slots in its
-    own block of the ``moe_experts`` layout (E, capacity and D as the
-    mesh's ``shard`` lays them out), runs the grouped FFN there, and adds its
-    slots' outputs into a [T, D] partial sum, reduce-scattered back to
-    the token rows.  An all-to-all of each device's own tokens would move
-    less; this is the port's dispatch, not the reference's.  On a
-    one-device mesh every sum is the plain path's, in its slot order."""
+    """``moe.dispatch`` on a mesh, in the layout of the reference's compiled
+    program: x [T, D] a DTensor whose token rows are split over the batch
+    axes, the [E, cap, D] buffers laid out by ``shard``'s ``moe_experts``
+    rule.  No device holds a [T, D] tensor.
+
+    The capacity stays global, as the reference's: the (token, k) expert
+    ids and gates are gathered (ints and floats, T*K) and every device
+    ranks all pairs, so each knows every slot's token.  Then, by the rule:
+
+    * training, experts over "model" and capacity over the batch axes:
+      each device fills its experts' slots at full capacity from its own
+      token rows (0 in the slots of other devices' tokens), and the
+      blocks are summed over the batch axes into the capacity shard (a
+      reduce-scatter of [E/n_model, cap, D]).  After the grouped FFN the
+      gate-weighted outputs are all-gathered over the batch axes, each
+      device adds the slots of its own tokens into its rows, and the rows
+      are summed over "model".  Where the buffers cross the mesh they are
+      capacity-major ([cap, E/n_model, D]), so a collective splits their
+      leading dim, and the capacity is padded to a multiple of the batch
+      axes' size (empty slots, as XLA pads an uneven shard).
+    * serving, experts over "data" and features over "model": each device
+      gathers every token at its feature width ([T, D/n_model]), fills
+      its experts' slots, and after the FFN adds them into [T + 1,
+      D/n_model] rows, summed over "data" into its token rows; the
+      feature blocks are then gathered.
+
+    On a one-device mesh every sum is the plain path's, in its slot
+    order."""
     t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     mesh, xpl = x.device_mesh, tuple(x.placements)
+    if any(pl not in (Replicate(), Shard(0)) for pl in xpl):
+        raise ValueError(f"the MoE dispatch wants x's token rows split, got {xpl}")
     whole = [Replicate()] * mesh.ndim
     blk_pl = shard.placements["moe_experts"]
-    # summed over the devices whose blocks differ
+    # a gathered input's gradient: summed over the devices whose blocks differ
     part = [Partial() if isinstance(pl, Shard) else Replicate() for pl in blk_pl]
+    # x's local rows' gradient (and the training output): summed over the
+    # devices that hold the same rows but other blocks
+    x_part = [Partial() if xp == Replicate() and isinstance(bp, Shard) else xp
+              for xp, bp in zip(xpl, blk_pl)]
 
     flat_e = expert.reshape(-1).redistribute(mesh, whole).to_local()  # [T*K]
     pos = moe._rank_within_expert(flat_e, e)
@@ -282,24 +365,66 @@ def moe_dispatch(p, cfg, x: DTensor, gate, expert, cap: int, shard):
     g_all = gate.redistribute(mesh, whole).to_local(grad_placements=part).reshape(-1)
     gate_for_slot = g_all.new_zeros((e * cap + 1,)).index_put((slot,), g_all)[: e * cap]
 
-    # this device's block of [E, cap, D]
-    (e0, el), (c0, cl), (d0, dl) = (block_span((e, cap, d), mesh, blk_pl, i)
+    nb = _ways(mesh, blk_pl, 1)
+    cp = -(-cap // nb) * nb
+    (e0, el), (c0, cl), (d0, dl) = (block_span((e, cp, d), mesh, blk_pl, i)
                                     for i in range(3))
-    blk_tok = tok_for_slot[e0:e0 + el, c0:c0 + cl]
-    x_all = x.redistribute(mesh, whole).to_local(grad_placements=part)[:, d0:d0 + dl]
-    empty = (blk_tok == t)[..., None].to(x_all.dtype)  # slots no pair took
-    xe = x_all[blk_tok.clamp(max=t - 1)] * (1 - empty)
-    xe = shard(from_local(xe, mesh, blk_pl, (e, cap, d)), "moe_experts")
-    h = torch.nn.functional.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
-    ye = shard(torch.bmm(h, p["w_down"]), "moe_experts")
-    ye = ye.redistribute(mesh, blk_pl).to_local()  # [el, cl, dl]
+    # the device's experts, every slot: [el, cp]
+    tok = torch.nn.functional.pad(tok_for_slot[e0:e0 + el], (0, cp - cap), value=t)
+    gates = torch.nn.functional.pad(gate_for_slot.reshape(e, cap)[e0:e0 + el], (0, cp - cap))
+    xl = x.to_local(grad_placements=x_part)
 
-    g_blk = gate_for_slot.reshape(e, cap)[e0:e0 + el, c0:c0 + cl]
-    yflat = (ye * g_blk[..., None].to(ye.dtype)).reshape(-1, dl)
-    cols = ye.new_zeros((t + 1, dl)).index_add(0, blk_tok.reshape(-1), yflat)[:t]
-    out = torch.nn.functional.pad(cols, (d0, d - d0 - dl)).to(x.dtype)
-    out = from_local(out, mesh, part, (t, d)).redistribute(mesh, xpl)
-    return out, flat_e, keep
+    def ffn(xe: torch.Tensor) -> torch.Tensor:
+        """The grouped SwiGLU on this device's block -> its local output.
+        Each weight keeps its experts' block (and in serving its split of
+        D or F) and is gathered over the axes that split the capacity: its
+        FSDP shards, as the reference's program gathers them.  DTensor's
+        own plan would move the activations and sum [E, cap, F] partials."""
+        xe = shard(from_local(xe, mesh, blk_pl, (e, cp, d)), "moe_experts")
+        w = {name: p[name].redistribute(mesh, [
+            Shard(0) if bp == Shard(0) else wp if bp == Shard(2) else Replicate()
+            for bp, wp in zip(blk_pl, p[name].placements)])
+            for name in ("w_gate", "w_up", "w_down")}
+        h = torch.nn.functional.silu(torch.bmm(xe, w["w_gate"])) * torch.bmm(xe, w["w_up"])
+        ye = shard(torch.bmm(h, w["w_down"]), "moe_experts")
+        return ye.redistribute(mesh, blk_pl).to_local()
+
+    if _tokens_stay(xpl, blk_pl):
+        # training: the tokens stay; the capacity-major [cp, E, D] layouts
+        cmaj = [Shard(0) if pl == Shard(1) else Shard(1) if pl == Shard(0) else pl
+                for pl in blk_pl]
+        fill = [Partial() if xp == Shard(0) else pl if pl == Shard(1) else Replicate()
+                for xp, pl in zip(xpl, cmaj)]
+        lo, tl = shard_span(x, 0)
+        # [cp, el]: each slot's row in this device's x, tl (a zero row) if not here
+        at = torch.where((tok >= lo) & (tok < lo + tl), tok - lo, tl).t()
+        x_pad = torch.cat([xl, xl.new_zeros((1, d))])
+        xe = _axis_by_axis(from_local(x_pad[at], mesh, fill, (cp, e, d)), cmaj)
+        ye = ffn(xe.to_local().transpose(0, 1))  # [el, cl, D]
+        yg = (ye * gates[:, c0:c0 + cl, None].to(ye.dtype)).transpose(0, 1)
+        gath = [Replicate() if pl == Shard(1) else cm for pl, cm in zip(blk_pl, cmaj)]
+        own = [Partial() if pl == Shard(1) else cm for pl, cm in zip(blk_pl, cmaj)]
+        yg = _GatherAxes.apply(from_local(yg, mesh, cmaj, (cp, e, d)), gath)
+        yg = yg.to_local(grad_placements=own)  # [cp, el, D]: each device's tokens' gradient
+        rows = yg.new_zeros((tl + 1, d))
+        # expert by expert, the plain path's slot order (the unbind's
+        # backward stacks the experts' gradients in one op)
+        for j, ys in enumerate(yg.unbind(1)):
+            rows.index_add_(0, at[:, j], ys)
+        out = from_local(rows[:tl], mesh, x_part, (t, d))
+    else:
+        # serving: every token at this device's feature width
+        feat = [Shard(1) if bp == Shard(2) else xp for xp, bp in zip(xpl, blk_pl)]
+        summed = [Shard(1) if bp == Shard(2) else pt for bp, pt in zip(blk_pl, part)]
+        cols = from_local(xl[:, d0:d0 + dl], mesh, feat, (t, d))
+        x_all = _GatherAxes.apply(cols, [Replicate() if pl == Shard(0) else pl for pl in feat])
+        x_all = x_all.to_local(grad_placements=summed)  # [T, dl]
+        xe = x_all[tok.clamp(max=t - 1)].masked_fill_((tok == t)[..., None], 0)
+        ye = ffn(xe)  # [el, cp, dl]
+        yg = (ye * gates[..., None].to(ye.dtype)).reshape(-1, dl)
+        sums = ye.new_zeros((t + 1, dl)).index_add(0, tok.reshape(-1), yg)[:t]
+        out = _axis_by_axis(from_local(sums, mesh, summed, (t, d)), feat)
+    return out.redistribute(mesh, xpl).to(x.dtype), flat_e, keep
 
 
 # ------------------------------------------------------------------ GNN --

@@ -61,6 +61,7 @@ def _lm_case(mesh, out):
     from repro_torch.launch import shardings as sh
     from repro_torch.launch.steps import build_cell
     from repro_torch.launch.train import train_step
+    from repro_torch.models import moe
     from repro_torch.models.transformer import forward, init_lm
     from repro_torch.optim.optimizers import OptConfig, make_optimizer
 
@@ -112,6 +113,57 @@ def _lm_case(mesh, out):
             got, _ = forward(sp, kcfg, sh.distribute(ktoks, mcell.in_shardings[2]["tokens"]),
                              make_shard_fn(mesh, serving=True))
         out["moe_serving_logits"] = _rel(_full(got), want)
+
+    # llama4's MoE gradients through the training layout (experts over
+    # "model", capacity over "data")
+    mlabels = labels % mcfg.vocab
+    mlabels[0, :3] = -100
+    batch_pl = (mcell.in_shardings[2]["tokens"], mcell.in_shardings[2]["labels"])
+    want = _moe_grads(mparams, mcfg, toks % mcfg.vocab, mlabels)
+    got = _moe_grads(sh.distribute(mparams, mcell.in_shardings[0]), mcfg,
+                     *sh.distribute((toks % mcfg.vocab, mlabels), batch_pl), make_shard_fn(mesh))
+    out["moe_grads"] = max(_rel(_full(g), w) for g, w in zip(got, want))
+
+    # kimi's top-2 of 8, training layout with its FSDP weights, at a
+    # capacity (13 slots, odd over "data") that drops pairs
+    kcfg = dataclasses.replace(get_arch("kimi-k2-1t-a32b").smoke_config, capacity_factor=0.55)
+    kparams = init_lm(3, kcfg, device="cpu")
+    ktoks, klabels = toks % kcfg.vocab, labels % kcfg.vocab
+    routed = []
+    rank = moe._rank_within_expert
+    moe._rank_within_expert = lambda ids, n: routed.append(ids) or rank(ids, n)
+    try:
+        want = _moe_grads(kparams, kcfg, ktoks, klabels)
+    finally:
+        moe._rank_within_expert = rank
+    kspecs = sh.named(mesh, sh.lm_param_specs(kcfg, mesh, fsdp=True))
+    got = _moe_grads(sh.distribute(kparams, kspecs), kcfg,
+                     *sh.distribute((ktoks, klabels), batch_pl), make_shard_fn(mesh))
+    out["moe_drop_grads"] = max(_rel(_full(g), w) for g, w in zip(got, want))
+    cap = int(ktoks.numel() * kcfg.top_k / kcfg.n_experts * kcfg.capacity_factor)
+    out["kimi_capacity"] = cap
+    out["kimi_dropped"] = [int((rank(ids, kcfg.n_experts) >= cap).sum()) for ids in routed]
+    out["kimi_loads"] = [torch.bincount(ids, minlength=kcfg.n_experts).tolist()
+                         for ids in routed]
+
+
+def _moe_grads(params, cfg, tokens, labels, shard=None):
+    """[loss, d loss / d each MoE leaf] of the LM's loss, on plain tensors
+    or, with a mesh's ``shard``, on DTensors (under implicit replication,
+    as the cells run)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.checkpoint.manager import tree_flatten, tree_unflatten
+    from repro_torch.models.layers import no_shard
+    from repro_torch.models.transformer import lm_loss
+
+    leaves, _ = tree_flatten(params)
+    live = [p.detach().requires_grad_() for p in leaves]
+    tree = tree_unflatten(params, live)
+    with implicit_replication():
+        loss, _ = lm_loss(tree, cfg, tokens, labels, shard or no_shard)
+        moe_leaves = [tree["layers"]["moe"][k] for k in sorted(tree["layers"]["moe"])]
+        return [loss.detach(), *torch.autograd.grad(loss, moe_leaves)]
 
 
 def _rec_case(mesh, out):
@@ -260,10 +312,21 @@ def mesh_results(tmp_path_factory):
 
 
 @pytest.mark.parametrize("key", ["lm_loss", "lm_params", "moe_logits", "moe_aux",
-                                 "moe_serving_logits", "dlrm_logits", "gnn_loss",
-                                 "gnn_params", "retrieval_scores"])
+                                 "moe_serving_logits", "moe_grads", "moe_drop_grads",
+                                 "dlrm_logits", "gnn_loss", "gnn_params",
+                                 "retrieval_scores"])
 def test_mesh_step_equals_plain_step(mesh_results, key):
     assert mesh_results[key] <= RTOL, (key, mesh_results[key])
+
+
+def test_kimi_case_drops_pairs_at_uneven_loads(mesh_results):
+    """The kimi case exercises capacity truncation: in each layer some
+    (token, k) pairs find their expert full, the experts' loads differ,
+    and the capacity splits unevenly over "data"."""
+    assert mesh_results["kimi_capacity"] % 2 == 1
+    assert len(mesh_results["kimi_dropped"]) == 2  # the SMOKE config's layers
+    assert all(n > 0 for n in mesh_results["kimi_dropped"])
+    assert all(max(ld) > min(ld) for ld in mesh_results["kimi_loads"])
 
 
 def test_retrieval_top100_ids_equal_score_candidates(mesh_results):
