@@ -48,6 +48,12 @@ constexpr int kThreads = 256;
 constexpr int kRowThreads = 8;  // threads scoring one row
 constexpr int kRowsPerPass = kThreads / kRowThreads;
 constexpr int kLoads = 8;  // slots a thread tests at once when listing
+// Blocks an SM holds by shared memory at SIFT1M (kernels/BUDGETS.md), the
+// launch bound's minimum: a cap of 64 registers.  With no minimum ptxas
+// aims at 5 blocks for <bf16, true> (48 registers) and spills long-lived
+// scalars (the split's member range, the query's norm) that the member
+// and tile loops reload.
+constexpr int kMinBlocks = 4;
 
 template <typename T>
 __device__ __forceinline__ float widen(T v);
@@ -75,7 +81,7 @@ __device__ __forceinline__ float round_query<__nv_bfloat16>(float q) {
 // kVec: rows are a multiple of 16 bytes and the pool 16-byte aligned, so
 // rows are staged by cp.async and read as 16-byte vectors.
 template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 block_topk_pass1(const float* __restrict__ queries, const T* __restrict__ pool,
                  int T_m, int D, const int* __restrict__ block_ids,
                  const int* __restrict__ members, const int* __restrict__ counts,
@@ -181,6 +187,9 @@ block_topk_pass1(const float* __restrict__ queries, const T* __restrict__ pool,
         float dot = 0.f, vn = 0.f;
         if (r < nr) {
           const T* row = rows + static_cast<size_t>(r) * D;
+          // unrolled twice: at the 64-register cap, deeper unrolling of
+          // <float, true> holds more 16-byte loads in flight than fit
+#pragma unroll 2
           for (int u = sub; u < NU; u += kRowThreads) {
             if constexpr (kVec) {
               float v[VE];

@@ -59,6 +59,14 @@ constexpr int kThreads = 256;
 constexpr int kRowThreads = 8;  // lanes scoring one row
 constexpr int kRowsPerPass = kThreads / kRowThreads;
 constexpr int kLoads = 8;  // slots a thread tests at once when listing
+// The launch bound's minimum of blocks an SM: 5, as shared memory holds at
+// SIFT1M (kernels/BUDGETS.md), a cap of 48 registers; rows off 16 bytes
+// (kVec false) spill under that cap and take 4 (64 registers), a cap under
+// which <true> spills.  With no minimum ptxas gives both 48 registers and
+// spills long-lived scalars (the split's member range, the staging steps)
+// that the group and tile loops reload.
+template <bool kVec>
+constexpr int kMinBlocks = kVec ? 5 : 4;
 
 // The reference's epilogue, one rounding per operation, in its order.
 __device__ __forceinline__ float int8_score(float qn, float sq, float sv,
@@ -72,7 +80,7 @@ __device__ __forceinline__ float int8_score(float qn, float sq, float sv,
 // kVec: D is a multiple of 16 and the pool 16-byte aligned, so rows are
 // staged by cp.async and scored in 16-byte units; else in 4-byte words.
 template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<kVec>)
 int8_topk_pass1(const int8_t* __restrict__ q_codes,
                 const float* __restrict__ q_meta,
                 const int8_t* __restrict__ pool,

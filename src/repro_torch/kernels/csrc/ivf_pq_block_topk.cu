@@ -70,13 +70,19 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kKsub = 256;
 constexpr int kLoads = 8;  // slots a thread tests at once when listing
+// Blocks an SM holds by shared memory at the DSSM deployment
+// (kernels/BUDGETS.md), the launch bound's minimum: a cap of 64 registers.
+// With no minimum ptxas aims at 5 blocks for 5 of the 6 instantiations (48
+// registers) and spills long-lived scalars (the split's member range, the
+// staging steps) that the group and tile loops reload.
+constexpr int kMinBlocks = 4;
 
 // UB: bytes a code unit is staged and read by (16: cp.async, M % 16 == 0
 // and a 16-byte aligned pool; 4: M % 4 == 0 and 4-byte aligned; 1).
 // kStaged: the tables are staged in shared memory (nt >= 1), else gathered
 // from device memory.
 template <int UB, bool kStaged>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 pq_topk_pass1(const float* __restrict__ lut, const uint8_t* __restrict__ codes,
               int T_m, int M, const int* __restrict__ block_ids,
               const int* __restrict__ members, const int* __restrict__ mslots,

@@ -86,11 +86,19 @@ __host__ __device__ __forceinline__ int ring_bytes(int ns, int tp, int nv, int G
   return ring > red ? ring : red;
 }
 
+// The launch bound's minimum of blocks an SM for each <MG, VPT>: the
+// count ptxas reaches with no minimum, but 6 (80 registers) for <2, 2>,
+// where its own aim of 7 (72 registers) spills long-lived scalars that
+// the tile loop reloads.
+template <int MG, int VPT>
+constexpr int kSplitMinBlocks = VPT == 1 ? (MG == 1 ? 9 : MG == 2 ? 7 : MG == 4 ? 6 : 4)
+                                         : (MG == 1 ? 8 : MG == 2 ? 6 : MG == 4 ? 5 : 3);
+
 // MG: query heads per KV head kept in registers (Gc <= MG): heads g0 ..
 // g0 + Gc - 1 of each group of G.  VPT: 16-byte vectors of a K row per
 // thread in the logits (NV <= 32 * VPT).
 template <typename T, int MG, int VPT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kSplitMinBlocks<MG, VPT>)
 paged_attn_split(const T* __restrict__ q, const T* __restrict__ k_pool,
                  const T* __restrict__ v_pool, const int* __restrict__ tables,
                  const int* __restrict__ lengths, int P, int T_m, int KVH,

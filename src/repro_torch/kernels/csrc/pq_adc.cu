@@ -21,11 +21,12 @@
 // items a block (pq_adc.plan_adc: as many blocks as the SMs hold at once,
 // four an SM by registers, each with an equal run), so a block takes a
 // table, or several in turn, and each thread a row at a time in batches of
-// two. Per item, each thread issues its first batch's code loads (a row's 16
-// codes one 16-byte load where M % 16 == 0 and the codes 16-byte aligned;
-// else 4- or 1-byte loads) before it waits on the table, which is staged by
-// 16-byte cp.async (4-byte for a table off 16 bytes); the other blocks of
-// the SM gather meanwhile. The next batch's codes load while the current
+// two (one for codes loaded a byte at a time). Per item, each thread issues
+// its first batch's code loads (a row's 16 codes one 16-byte load where
+// M % 16 == 0 and the codes 16-byte aligned; else 4- or 1-byte loads)
+// before it waits on the table, which is staged by 16-byte cp.async
+// (4-byte for a table off 16 bytes); the other blocks of the SM gather
+// meanwhile. The next batch's codes load while the current
 // batch is gathered. (On the H100, batches of four rows spilled registers
 // and took 0.068 ms at block_table's shape, batches of two 0.049; a second
 // table buffer prefetching the block's next table was no faster.) A row's M
@@ -40,7 +41,11 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kKsub = 256;
-constexpr int kBatch = 2;       // rows a thread gathers at once
+// rows a thread gathers at once: two, or one where a row's codes load a
+// byte at a time (UB 1: two rows' 32 byte loads in flight spill at 64
+// registers)
+template <int UB>
+constexpr int kBatch = UB == 1 ? 1 : 2;
 constexpr int kMinBlocks = 4;   // blocks an SM holds (64 registers a thread)
 
 // code bytes [16p, 16p + 16) of a row (those below M); UB: bytes a load
@@ -98,18 +103,18 @@ pq_adc_kernel(const float* __restrict__ lut, const uint8_t* __restrict__ codes,
     const int r = it / nc;
     const int n0 = (it - r * nc) * rpc, n1 = min(N, n0 + rpc);
     const uint8_t* base = codes + static_cast<size_t>(r) * N * M;
-    // this thread's rows n0 + tid + 256 i, in batches of kBatch
+    // this thread's rows n0 + tid + 256 i, in batches of kBatch<UB>
     const int mine = n0 + tid < n1 ? (n1 - n0 - tid + kThreads - 1) / kThreads : 0;
-    const int nbatch = (mine + kBatch - 1) / kBatch;
+    const int nbatch = (mine + kBatch<UB> - 1) / kBatch<UB>;
     auto load = [&](int bt, int p, uint4* v) {
 #pragma unroll
-      for (int i = 0; i < kBatch; ++i) {
-        const int n = n0 + tid + kThreads * (bt * kBatch + i);
+      for (int i = 0; i < kBatch<UB>; ++i) {
+        const int n = n0 + tid + kThreads * (bt * kBatch<UB> + i);
         v[i] = n < n1 ? load_piece<UB>(base + static_cast<size_t>(n) * M, p, M)
                       : make_uint4(0u, 0u, 0u, 0u);
       }
     };
-    uint4 cur[kBatch], nxt[kBatch];
+    uint4 cur[kBatch<UB>], nxt[kBatch<UB>];
     if (nbatch > 0) load(0, 0, cur);  // the codes first, then the table
 
     if (r != cur_r) {  // a new table: stage it while the codes load
@@ -127,27 +132,27 @@ pq_adc_kernel(const float* __restrict__ lut, const uint8_t* __restrict__ codes,
     }
 
     // the next batch's codes load while this one is gathered
-    float acc[kBatch];
+    float acc[kBatch<UB>];
 #pragma unroll
-    for (int i = 0; i < kBatch; ++i) acc[i] = 0.f;
+    for (int i = 0; i < kBatch<UB>; ++i) acc[i] = 0.f;
     for (int bt = 0; bt < nbatch; ++bt) {
       for (int p = 0; p < np; ++p) {
         const bool last = p + 1 == np;
         if (!last) load(bt, p + 1, nxt);
         else if (bt + 1 < nbatch) load(bt + 1, 0, nxt);
 #pragma unroll
-        for (int i = 0; i < kBatch; ++i)
+        for (int i = 0; i < kBatch<UB>; ++i)
           acc[i] = gather_piece<kFull>(acc[i], lut_s, cur[i], p, M);
         if (last) {
 #pragma unroll
-          for (int i = 0; i < kBatch; ++i) {
-            const int n = n0 + tid + kThreads * (bt * kBatch + i);
+          for (int i = 0; i < kBatch<UB>; ++i) {
+            const int n = n0 + tid + kThreads * (bt * kBatch<UB> + i);
             if (n < n1) out[static_cast<size_t>(r) * N + n] = acc[i];
             acc[i] = 0.f;
           }
         }
 #pragma unroll
-        for (int i = 0; i < kBatch; ++i) cur[i] = nxt[i];
+        for (int i = 0; i < kBatch<UB>; ++i) cur[i] = nxt[i];
       }
     }
   }

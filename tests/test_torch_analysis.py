@@ -283,18 +283,27 @@ def test_ptxas_report_parses_and_budgets():
     assert topk["blocks_by_regs"] == 65_536 // (2304 * 8) == 3
     assert topk["blocks_by_smem"] == 233_472 // (1040 + plan_smem + 1024)
     assert budgets[1]["threads"] == 512
-    # a spill past its pin is a finding; one within it is not
+    # any spill is a finding; a row without one is not
     assert smem.spill_findings(budgets[:1]) == []
-    assert len(smem.spill_findings(budgets)) == 1
-    pinned = dict(smem.KNOWN_SPILLS)
-    try:
-        smem.KNOWN_SPILLS[("ivf_block_topk", "empty_kernel")] = (12, 12)
-        assert smem.spill_findings(budgets) == []
-        smem.KNOWN_SPILLS[("ivf_block_topk", "empty_kernel")] = (12, 11)
-        assert len(smem.spill_findings(budgets)) == 1
-    finally:
-        smem.KNOWN_SPILLS.clear()
-        smem.KNOWN_SPILLS.update(pinned)
+    assert smem.spill_findings(budgets) == [
+        "ivf_block_topk: empty_kernel spills 12 B stored / 12 B loaded"]
+
+
+@pytest.mark.parametrize("stores,loads", [(0, 0), (4, 0), (0, 4), (4, 4)])
+def test_spill_findings_flag_any_spill(stores, loads):
+    """No allowance: 4 bytes of spill stores or loads in ptxas's report of
+    one instantiation is a finding; 0 and 0 is not."""
+    log = PTXAS_LOG.replace(
+        "8 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads",
+        f"8 bytes stack frame, {stores} bytes spill stores, {loads} bytes spill loads")
+    budgets = smem.card_budgets(smem.ptxas_rows("rerank_topk", log))
+    assert smem.spill_findings(budgets[:1]) == []
+    found = smem.spill_findings(budgets)
+    if stores or loads:
+        assert found == [f"rerank_topk: empty_kernel spills {stores} B stored "
+                         f"/ {loads} B loaded"]
+    else:
+        assert found == []
 
 
 # ------------------------------------------------------------ linter units --

@@ -2,8 +2,7 @@
 one).  This file imports no jax: the card's machine has none.
 
 * ptxas's report of every kernel the port builds parses, each
-  instantiation places a block on an SM, and no instantiation spills more
-  than ``smem.KNOWN_SPILLS`` pins;
+  instantiation places a block on an SM, and no instantiation spills;
 * every program of the op audit, run once on a card index at the audit
   geometry, makes exactly the host syncs the audit's inventory pins (plus
   one for a search's result readback).

@@ -760,6 +760,33 @@ def test_ivf_pq_block_topk_kernel_table_fallbacks(cuda, q, npb, m, p, t, kprime,
             kprime, plan={"nt": nt})
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset,ub", [(0, 16), (4, 4), (1, 1)])
+def test_ivf_pq_block_topk_kernel_untabled_units(cuda, offset, ub):
+    """The tables read from device memory (nt 0: K' = 8192 leaves no room
+    for one of M = 128 beside the keys) with code rows staged by 16-, 4-
+    and 1-byte units (a pool 0, 4 or 1 byte off 16): the instantiations
+    <16, false>, <4, false> and <1, false> of pass 1."""
+    rng = np.random.default_rng(34 + offset)
+    q, npb, m, p, t, kprime = 2, 2, 128, 4, 1024, 8192
+    lut = (rng.normal(size=(q, npb, m, 256)) ** 2).astype(np.float32)
+    codes = rng.integers(0, 256, (p, t, m)).astype(np.uint8)
+    pids = np.arange(p * t, dtype=np.int32).reshape(p, t)
+    pids[:, 3 * t // 4 :] = -1
+    live = (pids != -1).astype(np.uint8)
+    live[rng.random((p, t)) < 0.1] = 0
+    owners = (np.arange(p) % (npb + 1)).astype(np.int32)
+    probe = np.stack([rng.permutation(npb + 1)[:npb] for _ in range(q)]).astype(np.int32)
+    flat = torch.zeros(codes.size + offset, dtype=torch.uint8, device=cuda)
+    pool = flat[offset:].view(codes.shape)
+    pool.copy_(_t(codes).to(cuda))
+    got_ub = 16 if pool.data_ptr() % 16 == 0 else 4 if pool.data_ptr() % 4 == 0 else 1
+    assert got_ub == ub
+    args = [_t(lut).to(cuda), pool] + [_t(a).to(cuda) for a in (
+        np.arange(p, dtype=np.int32), owners, pids, live, probe)]
+    _pq_run(cuda, args, kprime, plan={"nt": 0})
+
+
 def _rerank_inputs(rng, dtype, q, kp, d, ties=False):
     """Survivor rows of each dtype with a fifth of the locations -1; with
     ``ties``, small integer rows repeated in each query (every distance
@@ -1157,11 +1184,16 @@ def test_paged_decode_attention_many_splits(cuda):
     (3, 32, 2, 128, 16, 9),  # G = 16: H 32 over 2 KV heads
     (2, 16, 1, 64, 64, 4),  # G = 16 and blocks of 64
     (3, 12, 1, 32, 16, 4),  # G = 12: launches of 8 and 4 heads
+    (3, 2, 2, 256, 16, 5),  # heads of 256 dims, G = 1, 2, 4, 8: float32
+    (3, 4, 2, 256, 16, 5),  # with two 16-byte vectors of a K row a
+    (3, 8, 2, 256, 16, 5),  # thread, bf16 at its widest head
+    (3, 16, 2, 256, 16, 5),
 ])
 def test_paged_decode_attention_large_blocks_and_groups(cuda, dtype, b, h, kvh, dh, t, nb):
     """Pool blocks over 32 positions and GQA groups over 8 heads, which the
-    reference serves: against the plain version in float32 and the split-K
-    scheme's plain version, and one launch count a call."""
+    reference serves, and heads of 256 dims, the widest the kernels take:
+    against the plain version in float32 and the split-K scheme's plain
+    version, and one launch count a call."""
     from repro_torch.kernels import paged_attention
 
     q, kp, vp, tables, lengths = _paged_inputs(b, h, kvh, dh, t, nb, seed=t + h)
