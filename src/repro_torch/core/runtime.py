@@ -179,18 +179,38 @@ from repro_torch.obs.events import (
     FlightRecorder,
 )
 from repro_torch.obs.trace import (
+    DEVICE_STEP,
+    LANE_FUSED,
+    LANE_MUTATION,
+    LANE_SEARCH,
+    LOCK_RECORD,
+    LOCK_STATE,
+    LOCK_WRITE,
     OUTCOME_ERROR,
     OUTCOME_OK,
     OUTCOME_REJECTED,
     OUTCOME_SHED,
     STAGE_ACK,
     STAGE_ADMISSION,
+    STAGE_APPLY,
     STAGE_BATCH,
     STAGE_COMPILE,
+    STAGE_CONTROL,
     STAGE_DEVICE,
+    STAGE_EVENT_WAIT,
     STAGE_EXECUTE,
+    STAGE_LAUNCH,
+    STAGE_ORDER,
+    STAGE_PREP,
     STAGE_QUEUE,
+    STAGE_READBACK,
+    STAGE_RESOLVE,
+    STAGE_UPLOAD,
+    DispatchTrace,
     RequestTracer,
+    current_dispatch,
+    enter_dispatch,
+    exit_dispatch,
 )
 from repro_torch.persist import snapshot as snapmod
 from repro_torch.persist.snapshot import (
@@ -226,6 +246,18 @@ class _Lane:
         ev.record(self.stream)
         return ev
 
+    def timed(self, dt: DispatchTrace) -> Optional[torch.cuda.Event]:
+        """A timing event on this stream for a sampled dispatch's device
+        spans, noted on ``dt`` with the host time just before its record
+        (``obs.trace.DispatchTrace.device``)."""
+        if self.stream is None:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        ev.record(self.stream)
+        dt.note(ev, t)
+        return ev
+
     def wait(self, ev: Optional[torch.cuda.Event]) -> None:
         """Order this stream's later work after ``ev`` (no host wait)."""
         if ev is not None and self.stream is not None:
@@ -252,11 +284,15 @@ class _FifoLock:
         self._serving = 0  # guarded-by: _cv (ticket that holds the lock)
 
     def acquire(self) -> None:
+        dt = current_dispatch()  # a sampled dispatch records its wait
+        t_asked = time.perf_counter() if dt is not None else 0.0
         with self._cv:
             ticket = self._next
             self._next += 1
             while ticket != self._serving:
                 self._cv.wait()
+        if dt is not None:
+            dt.lock_wait(LOCK_STATE, t_asked, time.perf_counter())
 
     def release(self) -> None:
         with self._cv:
@@ -265,6 +301,37 @@ class _FifoLock:
 
     def __enter__(self) -> None:
         self.acquire()
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+
+class _WaitedLock:
+    """``_write_lock`` and ``_record_lock``: a plain lock whose takes by a
+    sampled dispatch are recorded as its lock waits."""
+
+    def __init__(self, name: str):
+        self._lock = threading.Lock()
+        self._name = name
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        dt = current_dispatch()
+        if dt is None:
+            return self._lock.acquire(blocking, timeout)
+        t_asked = time.perf_counter()
+        got = self._lock.acquire(blocking, timeout)
+        if got:
+            dt.lock_wait(self._name, t_asked, time.perf_counter())
+        return got
+
+    def release(self) -> None:
+        self._lock.release()
+
+    def locked(self) -> bool:
+        return self._lock.locked()
+
+    def __enter__(self) -> bool:
+        return self.acquire()
 
     def __exit__(self, *exc) -> None:
         self.release()
@@ -836,7 +903,7 @@ class ServingRuntime:
         # one writer of the state at a time, a step's read-only front
         # included.  Lock order: _record_lock -> _write_lock ->
         # _state_lock, never the other way
-        self._write_lock = threading.Lock()
+        self._write_lock = _WaitedLock(LOCK_WRITE)
         # the lanes' streams on the index's device: serial mode issues
         # everything on one, parallel and fused on one each
         self._s_lane = _Lane(index.device)
@@ -965,7 +1032,7 @@ class ServingRuntime:
         # acked after the cut are lost on replay) or between an apply and
         # its fence advance (replay would double-apply the record).
         # Taken before _write_lock and _state_lock.
-        self._record_lock = threading.Lock()
+        self._record_lock = _WaitedLock(LOCK_RECORD)
         # one snapshot publisher at a time; the thread handle + last
         # published LSN move under this lock (never held across publish IO)
         self._snap_lock = threading.Lock()
@@ -1126,8 +1193,12 @@ class ServingRuntime:
         if record is not None:
             record()
         fence = _Fence(self, take_lock=take_lock, before=before)
+        dt = current_dispatch()
+        start = None
         try:
             with self._m_lane.scope():
+                if dt is not None:
+                    start = self._m_lane.timed(dt)
                 dev = [self._to_device(a) for a in args]
                 self._mutation_fns[kind](self.index.state, *dev, fence)
                 fence()  # a step that wrote nothing still orders
@@ -1135,9 +1206,13 @@ class ServingRuntime:
             if fence.entered:
                 # later searches wait on whatever the step enqueued,
                 # even when it failed midway
-                ev = self._mutation_event = self._m_lane.record()
+                ev = self._mutation_event = (
+                    self._m_lane.record() if dt is None
+                    else self._m_lane.timed(dt))
                 self._budget = None  # chains may have grown
             fence.close()
+        if dt is not None:
+            dt.device_span(DEVICE_STEP, start, ev)
         return ev
 
     def _current_budget(self) -> int:  # holds: _state_lock
@@ -1229,11 +1304,18 @@ class ServingRuntime:
                 out = {}
 
                 def search_first():
+                    dt = current_dispatch()
                     with self._s_lane.scope():
+                        start = (self._s_lane.timed(dt)
+                                 if dt is not None else None)
                         out["d"], out["i"] = _search(
                             self.index.state, queries, qvalid
                         )
-                        self._search_event = self._s_lane.record()
+                        ev = self._search_event = (
+                            self._s_lane.record() if dt is None
+                            else self._s_lane.timed(dt))
+                    if dt is not None:
+                        dt.device_span(DEVICE_STEP, start, ev)
 
                 ev = self._mutate_locked(kind, m_args, take_lock=False,
                                          before=search_first)
@@ -1624,6 +1706,15 @@ class ServingRuntime:
             "deletes": c.get("deletes", 0),
             "updates": c.get("updates", 0),
             "compactions": c.get("compactions", 0),
+            # dispatches (a fused one counts in both lanes) and the rows
+            # they served; each nested under an ``n`` leaf, which both
+            # exporters type as a counter
+            "dispatches": {
+                "search": {"n": c.get("search_dispatches", 0)},
+                "search_rows": {"n": c.get("search_dispatch_rows", 0)},
+                "mutation": {"n": c.get("mutation_runs", 0)},
+                "mutation_rows": {"n": c.get("mutation_run_rows", 0)},
+            },
             # live gauges
             "pending_mutations": self._gate.pending(),
             "pending_searches": self._search_q.qsize(),
@@ -1804,6 +1895,35 @@ class ServingRuntime:
         for it in items:
             if it.trace is not None:
                 it.trace.stamp(stage, t)
+
+    def _open_dispatch(self, lane: str, counter: str, items: list[_Timed],
+                       t: float) -> Optional[DispatchTrace]:
+        """Count one dispatch under ``counter`` (its number is the record's
+        ``seq``) and, where one of ``items`` carries a sampled trace, open
+        its :class:`DispatchTrace`, linked from each sampled trace and made
+        the thread's current dispatch (``_close_dispatch`` restores the
+        one it replaces).  ``None`` otherwise: no record, no thread-local
+        write."""
+        seq = self._counters.inc(counter)
+        if all(it.trace is None for it in items):
+            return None
+        dt = DispatchTrace(lane, seq, t, len(items), 0)
+        for it in items:
+            if it.trace is not None:
+                it.trace.dispatch = dt
+        enter_dispatch(dt)
+        return dt
+
+    @staticmethod
+    def _close_dispatch(dt: Optional[DispatchTrace]) -> None:
+        """End the ``resolve`` stage, which closes the record, and restore
+        the thread's previous dispatch."""
+        if dt is None:
+            return
+        try:
+            dt.stamp(STAGE_RESOLVE)
+        finally:
+            exit_dispatch(dt)
 
     @staticmethod
     def _n_rows(it: _Timed) -> int:
@@ -2065,6 +2185,27 @@ class ServingRuntime:
         record.  An item that fails inside the loop is nacked, so a fence
         that ends at the record's LSN with those rows absent still honours
         RPO = 0 *acked* rows."""
+        dt = self._open_dispatch(LANE_MUTATION, "mutation_runs", items,
+                                 time.perf_counter())
+        try:
+            applied = self._apply_logged(items, dt, _isolate, _ids,
+                                         _logged_lsn)
+        finally:
+            self._close_dispatch(dt)
+        # after the futures resolve: a compaction failure must not fail
+        # a mutation that already applied
+        if applied and items[0].kind != "insert" and self.cfg.auto_compact:
+            try:
+                self._maybe_compact()
+            except Exception:
+                log.exception("auto-compact pass failed")
+                self._counters.inc("compact_errors")
+
+    def _apply_logged(self, items: list[_Timed], dt: Optional[DispatchTrace],
+                      _isolate: bool, _ids: Optional[np.ndarray],
+                      _logged_lsn: Optional[int]) -> bool:
+        """``_apply_run``'s dispatch, stamped on ``dt`` when sampled; true
+        once the run applied and its futures resolved."""
         kind = items[0].kind
         step = {
             "insert": self._insert_step,
@@ -2074,6 +2215,8 @@ class ServingRuntime:
         ids = _ids
         lsn = _logged_lsn
         rec: Optional[_Record] = None
+        if dt is not None:
+            dt.rows = sum(self._n_rows(it) for it in items)
         if _isolate:  # retries run under the outer call's hold
             self._record_lock.acquire()
         try:
@@ -2096,20 +2239,29 @@ class ServingRuntime:
                     )
                 args, ids, raw = self._mutation_args(kind, items, ids=ids)
                 rec = _Record(self, kind, ids, raw, lsn=lsn)
+                if dt is not None:
+                    dt.first = n_traced == 0
+                    dt.stamp(STAGE_PREP)
                 ev = step(args, rec)
                 # the key's first dispatch loaded the kernels: a compile
                 compiled = n_traced == 0
+                t_exec = time.perf_counter()
                 self._stamp(
-                    items, STAGE_COMPILE if compiled else STAGE_EXECUTE
+                    items, STAGE_COMPILE if compiled else STAGE_EXECUTE,
+                    t_exec,
                 )
                 _synchronize(ev)
                 t_dev = time.perf_counter()
                 self._stamp(items, STAGE_DEVICE, t_dev)
+                if dt is not None:
+                    dt.stamp(STAGE_APPLY, t_exec)
                 if not compiled:  # compile != service
                     self._controller.mutation.observe_service(t_dev - t_svc)
                 if rec.lsn is not None:
                     with self._state_lock:
                         self._applied_lsn = rec.lsn
+                if dt is not None:
+                    dt.stamp(STAGE_EVENT_WAIT)
             except Exception as e:
                 if rec is not None:  # the step may have logged the run
                     lsn = rec.lsn
@@ -2123,10 +2275,10 @@ class ServingRuntime:
                             [it], _isolate=False, _ids=sl, _logged_lsn=lsn
                         )
                         off += n
-                    return
+                    return False
                 self._counters.inc("poisoned", len(items))
                 self._fail_futures(items, e)
-                return
+                return False
         finally:
             if _isolate:
                 self._record_lock.release()
@@ -2135,15 +2287,9 @@ class ServingRuntime:
              "update": "updates"}[kind],
             len(ids),
         )
+        self._counters.inc("mutation_run_rows", len(ids))
         self._resolve_mutations(items, ids)
-        # after the futures resolve: a compaction failure must not fail
-        # a mutation that already applied
-        if kind != "insert" and self.cfg.auto_compact:
-            try:
-                self._maybe_compact()
-            except Exception:
-                log.exception("auto-compact pass failed")
-                self._counters.inc("compact_errors")
+        return True
 
     def _apply_mutations(self, items: list[_Timed]):
         """Apply a drained (possibly mixed-kind) item list run by run, in
@@ -2236,7 +2382,9 @@ class ServingRuntime:
         every batched future is resolved — result or exception — and every
         acquired slot is released in the ``finally`` (one slot per item,
         taken at submit).  A failed multi-item batch retries once per item
-        (poison isolation)."""
+        (poison isolation).  A sampled dispatch stamps its stages, and on
+        the card times its uploads, step and readback on the stream."""
+        dt: Optional[DispatchTrace] = None
         try:
             try:
                 # full dispatch turnaround, as in _apply_run: the effort
@@ -2244,16 +2392,29 @@ class ServingRuntime:
                 t_svc = time.perf_counter()
                 # batch_form ends before the fault site (see _apply_run)
                 self._stamp(items, STAGE_BATCH, t_svc)
+                dt = self._open_dispatch(LANE_SEARCH, "search_dispatches",
+                                         items, t_svc)
                 self._faults.check("search_step")
                 qs = [np.atleast_2d(i.payload) for i in items]
                 counts = [len(q) for q in qs]
                 batch = np.concatenate(qs, 0)
                 pb, valid = self._padded(batch, self._bucket(len(batch)))
+                if dt is not None:
+                    dt.rows = len(batch)
+                    dt.stamp(STAGE_PREP)
                 with self._s_lane.scope():
+                    if dt is not None:
+                        up = self._s_lane.timed(dt)
                     q_dev = self._to_device(pb)
                     v_dev = self._to_device(valid)
+                    if dt is not None:
+                        dt.device_span(STAGE_UPLOAD, up,
+                                       self._s_lane.timed(dt))
+                        dt.stamp(STAGE_UPLOAD)
                     with self._state_lock:
                         base = self._order_after_mutations()
+                        if dt is not None:
+                            dt.stamp(STAGE_ORDER)
                         st = self.index.state
                         if _isolate:  # top-level dispatch: feed the ladder
                             age = time.perf_counter() - min(
@@ -2278,15 +2439,30 @@ class ServingRuntime:
                             base, eff, nprobe, rerank
                         )
                         n_traced = self._traced(step)
+                        if dt is not None:
+                            dt.first = n_traced == 0
+                            launch = self._s_lane.timed(dt)
+                            dt.stamp(STAGE_CONTROL)
                         d, i = step(st, q_dev, v_dev)
-                        self._search_event = self._s_lane.record()
+                        done = self._search_event = (
+                            self._s_lane.record() if dt is None
+                            else self._s_lane.timed(dt))
                     compiled = n_traced == 0  # the key's first dispatch
+                    t_exec = time.perf_counter()
                     self._stamp(
-                        items, STAGE_COMPILE if compiled else STAGE_EXECUTE
+                        items, STAGE_COMPILE if compiled else STAGE_EXECUTE,
+                        t_exec,
                     )
                     # readback on the search stream: waits for this batch
                     d, i = d.cpu().numpy(), i.cpu().numpy()
                 t_dev = time.perf_counter()
+                if dt is not None:
+                    dt.stamp(STAGE_LAUNCH, t_exec)
+                    dt.device_span(DEVICE_STEP, launch, done)
+                    # on the stream the readback drained
+                    dt.device_span(STAGE_READBACK, done,
+                                   self._s_lane.timed(dt))
+                    dt.stamp(STAGE_READBACK, t_dev)
                 self._stamp(items, STAGE_DEVICE, t_dev)
                 if not compiled:  # compile != service
                     self._controller.search.observe_service(t_dev - t_svc)
@@ -2301,6 +2477,7 @@ class ServingRuntime:
                 self._counters.inc("poisoned", len(items))
                 self._fail_futures(items, e)
                 return
+            self._counters.inc("search_dispatch_rows", len(batch))
             t = time.perf_counter()
             off = 0
             for it, c in zip(items, counts):
@@ -2318,6 +2495,7 @@ class ServingRuntime:
             if _release:
                 for _ in items:
                     self._slots.release()
+            self._close_dispatch(dt)
 
     def _serial_mutations(self):
         """Fig. 2a single-lane mode: mutations interleave with (and block)
@@ -2436,6 +2614,7 @@ class ServingRuntime:
         kind = i_run[0].kind
         ids = None
         rec: Optional[_Record] = None
+        dt: Optional[DispatchTrace] = None
         try:
             try:
                 # full dispatch turnaround (see _apply_run)
@@ -2443,6 +2622,10 @@ class ServingRuntime:
                 # batch_form ends before the fault site (see _apply_run)
                 self._stamp(s_items, STAGE_BATCH, t_svc)
                 self._stamp(i_run, STAGE_BATCH, t_svc)
+                # one dispatch of both lanes: its number is the search's
+                self._counters.inc("mutation_runs")
+                dt = self._open_dispatch(LANE_FUSED, "search_dispatches",
+                                         s_items + i_run, t_svc)
                 self._faults.check("fused_step")
                 qs = [np.atleast_2d(x.payload) for x in s_items]
                 counts = [len(q) for q in qs]
@@ -2450,9 +2633,18 @@ class ServingRuntime:
                 m_args, ids, raw = self._mutation_args(kind, i_run)
                 rec = _Record(self, kind, ids, raw)
                 pq_, qvalid = self._padded(qbatch, self._bucket(len(qbatch)))
+                if dt is not None:
+                    dt.rows = len(qbatch) + len(ids)
+                    dt.stamp(STAGE_PREP)
                 with self._s_lane.scope():
+                    if dt is not None:
+                        up = self._s_lane.timed(dt)
                     q_dev = self._to_device(pq_)
                     v_dev = self._to_device(qvalid)
+                    if dt is not None:
+                        dt.device_span(STAGE_UPLOAD, up,
+                                       self._s_lane.timed(dt))
+                        dt.stamp(STAGE_UPLOAD)
                 # same per-record discipline as _apply_run: the snapshot
                 # cut is held off from the append to the fence advance,
                 # and the fence moves only once the run's event completed
@@ -2461,6 +2653,8 @@ class ServingRuntime:
                         rec()  # before the run's front (see _Record)
                         with self._state_lock:
                             base = self._order_after_mutations()
+                            if dt is not None:
+                                dt.stamp(STAGE_ORDER)
                             now = time.perf_counter()
                             age = now - min(x.t_arrival for x in s_items)
                             m_age = now - min(x.t_arrival for x in i_run)
@@ -2482,13 +2676,21 @@ class ServingRuntime:
                                 base, kind, eff, nprobe, rerank
                             )
                             n_traced = self._traced(fused_step)
+                            if dt is not None:
+                                dt.first = n_traced == 0
+                                dt.stamp(STAGE_CONTROL)
                             d, i, ev = fused_step(q_dev, v_dev, m_args)
                     compiled = n_traced == 0  # the key's first dispatch
                     stage = STAGE_COMPILE if compiled else STAGE_EXECUTE
-                    self._stamp(s_items, stage)
-                    self._stamp(i_run, stage)
+                    t_exec = time.perf_counter()
+                    self._stamp(s_items, stage, t_exec)
+                    self._stamp(i_run, stage, t_exec)
+                    if dt is not None:
+                        dt.stamp(STAGE_LAUNCH, t_exec)
                     with self._s_lane.scope():
                         d, i = d.cpu().numpy(), i.cpu().numpy()
+                    if dt is not None:
+                        dt.stamp(STAGE_READBACK)
                     _synchronize(ev)
                     t_dev = time.perf_counter()
                     self._stamp(s_items, STAGE_DEVICE, t_dev)
@@ -2500,6 +2702,8 @@ class ServingRuntime:
                     if rec.lsn is not None:
                         with self._state_lock:
                             self._applied_lsn = rec.lsn
+                    if dt is not None:
+                        dt.stamp(STAGE_EVENT_WAIT)
             except Exception:
                 self._counters.inc("fused_fallbacks")
                 self._run_search(s_items, _release=False)
@@ -2518,6 +2722,8 @@ class ServingRuntime:
                      "update": "updates"}[kind],
                     len(ids),
                 )
+                self._counters.inc("search_dispatch_rows", len(qbatch))
+                self._counters.inc("mutation_run_rows", len(ids))
                 t = time.perf_counter()
                 off = 0
                 for it, c in zip(s_items, counts):
@@ -2544,5 +2750,6 @@ class ServingRuntime:
         finally:
             for _ in s_items:
                 self._slots.release()
+            self._close_dispatch(dt)
         if rest:  # later runs / overflow of the drained batch, in order
             self._apply_mutations(rest)

@@ -1,5 +1,6 @@
 """Observability for the port's serving runtime, copies of the
-reference's: the span tracer (:mod:`repro_torch.obs.trace`), the flight
+reference's: the span tracer (:mod:`repro_torch.obs.trace`, with the
+port's own dispatch records beside the request traces), the flight
 recorder (:mod:`repro_torch.obs.events`), the exporters
 (:mod:`repro_torch.obs.export`: Prometheus text and Perfetto
 ``trace_event`` JSON, byte-identical to the reference's for the same
@@ -15,7 +16,9 @@ from repro_torch.obs.export import (
     prometheus_text,
 )
 from repro_torch.obs.trace import (
+    DISPATCH_STAGES,
     SPAN_STAGES,
+    DispatchTrace,
     RequestTrace,
     RequestTracer,
     TraceRing,
@@ -23,6 +26,8 @@ from repro_torch.obs.trace import (
 )
 
 __all__ = [
+    "DISPATCH_STAGES",
+    "DispatchTrace",
     "EVENT_CATALOG",
     "FlightRecorder",
     "SPAN_STAGES",

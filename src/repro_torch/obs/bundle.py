@@ -9,8 +9,9 @@ persist layer's ``snapshots/`` and ``wal/`` trees, which
 land inside a persist directory.
 
 Contents: reason, wall-clock time, runtime config, the full stats
-snapshot, the flight-recorder window, the trace-ring window, and any
-path-specific extras (e.g. the chained recovery error).  Writes are
+snapshot, the flight-recorder window, the trace-ring window, the dispatch
+records its traces link to, and any path-specific extras (e.g. the
+chained recovery error).  Writes are
 atomic (tmp + rename) and best-effort: a failing bundle dump must never
 mask the shutdown or the original error, so callers wrap this in
 try/except and log.
@@ -22,6 +23,8 @@ import json
 import os
 import time
 from typing import Optional
+
+from repro_torch.obs.trace import dispatches
 
 BUNDLE_SUBDIR = "debug"
 
@@ -50,6 +53,7 @@ def write_debug_bundle(
     extra: Optional[dict] = None,
 ) -> str:
     """Write one bundle under ``directory/debug/``; returns the path."""
+    traces = list(traces)
     out_dir = os.path.join(directory, BUNDLE_SUBDIR)
     os.makedirs(out_dir, exist_ok=True)
     _counter[0] += 1
@@ -63,6 +67,7 @@ def write_debug_bundle(
         "stats": stats or {},
         "events": [e.as_dict() for e in events],
         "traces": [t.as_dict() for t in traces],
+        "dispatches": [d.as_dict() for d in dispatches(traces)],
         "extra": extra or {},
     }
     path = os.path.join(out_dir, name)

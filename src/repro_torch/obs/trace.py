@@ -32,6 +32,35 @@ Threading: a trace object is only ever touched by the thread that
 currently owns the request (submitter, then exactly one worker loop —
 the queue hand-off provides the happens-before edge), so traces need no
 lock.  The ring and the sampler are shared and take a leaf lock.
+
+Dispatch traces.  A lane dispatch that serves at least one sampled
+request gets a :class:`DispatchTrace`, which each sampled request links
+to (``RequestTrace.dispatch``); nothing else holds it, so it enters no
+ring of its own and holds no reference back to its requests.  It has the
+same contiguous stamps, with stages from :data:`DISPATCH_STAGES`:
+
+search lane   ``prep`` (fault site, concatenate, pad) -> ``upload``
+              (pinned copies enqueued) -> ``order`` (``_state_lock``
+              taken; stream wait, chain budget) -> ``control`` (ladder,
+              controller, step lookup) -> ``launch`` (the step call, its
+              Python and host syncs) -> ``readback`` -> ``resolve``
+              (futures, callbacks, slot release)
+mutation run  ``prep`` (fault site, controller, packing, id allocation)
+              -> ``apply`` (WAL record, uploads, the step, its fence) ->
+              ``event_wait`` (the step's event, the LSN fence) ->
+              ``resolve``
+fused         ``prep`` -> ``upload`` -> ``order`` (the three locks, the
+              WAL record) -> ``control`` -> ``launch`` -> ``readback`` ->
+              ``event_wait`` -> ``resolve``
+
+Inside the stages it holds lock waits ``(lock, t_asked, t_held)`` for
+each take of ``state_lock``, ``write_lock`` and ``record_lock`` (the
+locks record them through :func:`current_dispatch`, a thread-local set
+only while a sampled dispatch runs), and on the card device spans
+``(stage, t0, t1)``: the lane's stream from reaching one timing event to
+reaching the next, placed on the ``time.perf_counter`` clock from the
+host times at which the events were recorded (see
+:meth:`DispatchTrace.device`).
 """
 
 from __future__ import annotations
@@ -39,8 +68,6 @@ from __future__ import annotations
 import threading
 import time
 from typing import List, Optional, Tuple
-
-from repro_torch.core.metrics import percentile_summary
 
 # ---------------------------------------------------------------- catalog --
 # Span stage names.  Register new stages here (and in the table in
@@ -64,6 +91,44 @@ SPAN_STAGES = frozenset({
     STAGE_ACK,
 })
 
+# Dispatch stages (DispatchTrace.stamp), held to the same rule.
+STAGE_PREP = "prep"
+STAGE_UPLOAD = "upload"
+STAGE_ORDER = "order"
+STAGE_CONTROL = "control"
+STAGE_LAUNCH = "launch"
+STAGE_READBACK = "readback"
+STAGE_APPLY = "apply"
+STAGE_EVENT_WAIT = "event_wait"
+STAGE_RESOLVE = "resolve"
+
+DISPATCH_STAGES = frozenset({
+    STAGE_PREP,
+    STAGE_UPLOAD,
+    STAGE_ORDER,
+    STAGE_CONTROL,
+    STAGE_LAUNCH,
+    STAGE_READBACK,
+    STAGE_APPLY,
+    STAGE_EVENT_WAIT,
+    STAGE_RESOLVE,
+})
+
+# Device spans of a dispatch: its uploads, its step and its readback.
+DEVICE_STEP = "step"
+DEVICE_SPANS = frozenset({STAGE_UPLOAD, DEVICE_STEP, STAGE_READBACK})
+
+# The runtime's locks whose waits a dispatch records.
+LOCK_STATE = "state_lock"
+LOCK_WRITE = "write_lock"
+LOCK_RECORD = "record_lock"
+LOCKS = frozenset({LOCK_STATE, LOCK_WRITE, LOCK_RECORD})
+
+LANE_SEARCH = "search"
+LANE_MUTATION = "mutation"
+LANE_FUSED = "fused"
+LANES = frozenset({LANE_SEARCH, LANE_MUTATION, LANE_FUSED})
+
 OUTCOME_OK = "ok"
 OUTCOME_REJECTED = "rejected"
 OUTCOME_SHED = "shed"
@@ -78,7 +143,8 @@ class RequestTrace:
     """Span timeline of one request; single-owner, no lock (see module
     docstring for the hand-off argument)."""
 
-    __slots__ = ("trace_id", "kind", "t_start", "marks", "outcome")
+    __slots__ = ("trace_id", "kind", "t_start", "marks", "outcome",
+                 "dispatch")
 
     def __init__(self, trace_id: int, kind: str, t_start: float):
         self.trace_id = trace_id
@@ -89,6 +155,9 @@ class RequestTrace:
         # poison retry re-dispatches), so this is a list, not a dict.
         self.marks: List[Tuple[str, float]] = []
         self.outcome: Optional[str] = None
+        # the DispatchTrace of the dispatch that served it (the last one,
+        # after a poison retry), or None
+        self.dispatch: Optional[DispatchTrace] = None
 
     def stamp(self, stage: str, t: Optional[float] = None) -> None:
         """Close the span ending now (or at explicit monotonic ``t``)."""
@@ -123,7 +192,170 @@ class RequestTrace:
                 {"stage": s, "t0": t0, "t1": t1, "dur_s": t1 - t0}
                 for s, t0, t1 in self.spans()
             ],
+            "dispatch": (
+                None if self.dispatch is None
+                else {"lane": self.dispatch.lane, "seq": self.dispatch.seq}
+            ),
         }
+
+
+def _check(name: str, known: frozenset, what: str) -> None:
+    if name not in known:
+        raise ValueError(
+            f"unregistered {what} {name!r}; known: {sorted(known)} "
+            "(register in repro_torch.obs.trace)"
+        )
+
+
+class DispatchTrace:
+    """Span timeline of one lane dispatch (module docstring): contiguous
+    host stages, lock waits inside them and, on the card, device spans.
+    Only the dispatching thread writes it, and only until it stamps
+    ``resolve``, which closes it: readers read a closed record
+    (:func:`dispatches` returns no other, :meth:`device` reads none)."""
+
+    __slots__ = ("lane", "seq", "t_start", "marks", "requests", "rows",
+                 "first", "waits", "_events", "_pending", "_device",
+                 "_outer")
+
+    def __init__(self, lane: str, seq: int, t_start: float, requests: int,
+                 rows: int):
+        _check(lane, LANES, "dispatch lane")
+        self.lane = lane
+        self.seq = seq  # the lane's dispatch number (stats() counter)
+        self.t_start = t_start
+        self.marks: List[Tuple[str, float]] = []
+        self.requests = requests
+        self.rows = rows
+        self.first = False  # the step key's first dispatch (a compile)
+        self.waits: List[Tuple[str, float, float]] = []
+        self._events: list = []  # (timing event, host time of its record)
+        # (stage, start event, end event), placed by device()
+        self._pending: list = []
+        self._device: Optional[List[Tuple[str, float, float]]] = None
+        self._outer: Optional[DispatchTrace] = None  # while current
+
+    def stamp(self, stage: str, t: Optional[float] = None) -> None:
+        """Close the stage ending now (or at ``t``)."""
+        _check(stage, DISPATCH_STAGES, "dispatch stage")
+        self.marks.append((stage, time.perf_counter() if t is None else t))
+
+    def spans(self) -> List[Tuple[str, float, float]]:
+        """Contiguous ``(stage, t0, t1)`` triples tiling the dispatch."""
+        out = []
+        prev = self.t_start
+        for stage, t in self.marks:
+            out.append((stage, prev, t))
+            prev = t
+        return out
+
+    @property
+    def t_end(self) -> float:
+        return self.marks[-1][1] if self.marks else self.t_start
+
+    @property
+    def closed(self) -> bool:
+        """The lane stamped ``resolve`` and writes the record no more."""
+        return bool(self.marks) and self.marks[-1][0] == STAGE_RESOLVE
+
+    def lock_wait(self, lock: str, t_asked: float, t_held: float) -> None:
+        """One take of ``lock``: asked for at ``t_asked``, held from
+        ``t_held``."""
+        _check(lock, LOCKS, "lock")
+        self.waits.append((lock, t_asked, t_held))
+
+    def note(self, event, t: float) -> None:
+        """A timing event recorded on a lane's stream at host time ``t``:
+        the card reaches it no earlier."""
+        self._events.append((event, t))
+
+    def device_span(self, stage: str, start, end) -> None:
+        """The lane's stream from noted event ``start`` to ``end``
+        (``None`` on the CPU: no span)."""
+        _check(stage, DEVICE_SPANS, "device span")
+        if start is not None and end is not None:
+            self._pending.append((stage, start, end))
+
+    def device(self) -> Optional[List[Tuple[str, float, float]]]:
+        """Device spans ``(stage, t0, t1)`` on the host clock, or ``None``:
+        on the CPU, while the record is open, while an event is not yet
+        complete (it never waits for one), or where the events cannot be
+        read (a failed device).
+
+        The card's clock runs at an unknown offset from the host's; each
+        noted event bounds it from below, since the card reaches an event
+        no earlier than the host records it.  The spans are placed at the
+        largest such bound: never late, and early by the least lag of any
+        of the dispatch's events between its record and the card reaching
+        it.  Each dispatch records one on an idle stream (the readback's
+        end, a mutation run's first), whose lag is the submission
+        latency.  Placed once, on the reader's side; the lane never reads
+        its events."""
+        if self._device is not None or not self.closed or not self._pending:
+            return self._device
+        events = self._events
+        try:
+            if not all(ev.query() for ev, _ in events):
+                return None
+            ref = events[-1][0]
+            before = {id(ev): ev.elapsed_time(ref) * 1e-3 for ev, _ in events}
+        except Exception:
+            return None
+        lo = max(t + before[id(ev)] for ev, t in events)
+        self._device = [(stage, lo - before[id(a)], lo - before[id(b)])
+                        for stage, a, b in self._pending]
+        return self._device
+
+    def as_dict(self) -> dict:
+        """The record as plain data.  It reads no event: device spans that
+        no reader has placed (:meth:`device`) are ``None``."""
+        dev = self._device
+        return {
+            "lane": self.lane,
+            "seq": self.seq,
+            "t_start": self.t_start,
+            "requests": self.requests,
+            "rows": self.rows,
+            "first": self.first,
+            "spans": [{"stage": s, "t0": t0, "t1": t1}
+                      for s, t0, t1 in self.spans()],
+            "lock_waits": [{"lock": k, "t_asked": t0, "t_held": t1}
+                           for k, t0, t1 in self.waits],
+            "device": None if dev is None else [
+                {"stage": s, "t0": t0, "t1": t1} for s, t0, t1 in dev],
+        }
+
+
+# The sampled dispatch the calling thread is running, set only for the
+# length of one (the locks read it to record their waits).
+_current = threading.local()
+
+
+def current_dispatch() -> Optional[DispatchTrace]:
+    return getattr(_current, "dispatch", None)
+
+
+def enter_dispatch(dt: DispatchTrace) -> None:
+    """Make ``dt`` the thread's current dispatch until
+    :func:`exit_dispatch`, which restores the one it replaced (a poison
+    retry runs inside its failed dispatch)."""
+    dt._outer = getattr(_current, "dispatch", None)
+    _current.dispatch = dt
+
+
+def exit_dispatch(dt: DispatchTrace) -> None:
+    _current.dispatch = dt._outer
+    dt._outer = None
+
+
+def dispatches(traces) -> List[DispatchTrace]:
+    """The distinct closed dispatch records the request traces link to,
+    in order of start.  A request's trace is finished before the lane
+    closes the record that served it, so a reader of the ring may find
+    one still open: it is left out."""
+    found = {id(tr.dispatch): tr.dispatch for tr in traces
+             if tr.dispatch is not None and tr.dispatch.closed}
+    return sorted(found.values(), key=lambda d: d.t_start)
 
 
 class TraceRing:
@@ -236,6 +468,10 @@ def decompose(traces) -> dict:
     end-to-end distribution and the per-trace span-sum distribution.
     Because spans are contiguous, ``span_sum`` equals ``e2e`` up to
     float rounding — exporting both keeps the invariant auditable."""
+    # here, not at the top: repro_torch.core imports the runtime, which
+    # imports this module
+    from repro_torch.core.metrics import percentile_summary
+
     per_stage: dict = {}
     e2e: List[float] = []
     sums: List[float] = []
